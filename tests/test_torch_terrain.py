@@ -189,3 +189,107 @@ def test_launchers_refuse_what_the_kernels_do_not_take(grids):
         tgrid.get_terrain_variables_cm(tg, x.to("meta"), x.to("meta"),
                                        x.to("meta"))
     assert kernels.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Index maps, occupancy and the front end's sigma lookup
+# ---------------------------------------------------------------------------
+
+def _poses3(jg, M=600, seed=7):
+    return np.stack(_poses(jg, M, seed), axis=1)
+
+
+def test_index_maps_match_jax(grids):
+    jg, tg = grids
+    pos = _poses3(jg)
+    want = jax.vmap(lambda p: jgrid.pos_to_index(jg, p))(jnp.asarray(pos))
+    got = tgrid.pos_to_index(tg, torch.tensor(pos))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        tgrid.bound_index(tg, got).numpy(),
+        np.asarray(jgrid.bound_index(jg, want)))
+    np.testing.assert_allclose(
+        tgrid.index_to_pos(tg, got).numpy(),
+        np.asarray(jgrid.index_to_pos(jg, want)), rtol=0, atol=1e-12)
+    inside = jax.vmap(lambda p: jgrid.is_in_map(jg, p))(jnp.asarray(pos))
+    np.testing.assert_array_equal(
+        tgrid.is_in_map(tg, torch.tensor(pos)).numpy(), np.asarray(inside))
+    assert 0 < int(inside.sum()) < len(pos)
+
+
+@pytest.mark.parametrize("fn", ["is_occupancy", "is_occupancy_xy",
+                                "is_occupancy_xy_batch"])
+def test_occupancy_matches_jax(grids, fn):
+    """In-map, edge, out-of-map and yaw-wrap poses, on the hill's own
+    occupancy and on a randomly occupied copy (the hill alone is almost
+    free)."""
+    jg, tg = grids
+    rng = np.random.default_rng(8)
+    occ = np.asarray(jg.occ) | (rng.random(jg.occ.shape) < 0.3)
+    occ_xy = np.asarray(jg.occ_xy) | (rng.random(jg.occ_xy.shape) < 0.3)
+    pos = _poses3(jg)
+    for j, t in ((jg, tg),
+                 (jg.replace(occ=jnp.asarray(occ), occ_xy=jnp.asarray(occ_xy)),
+                  tg.replace(occ=torch.tensor(occ),
+                             occ_xy=torch.tensor(occ_xy)))):
+        if fn == "is_occupancy":
+            want = jax.vmap(lambda p: jgrid.is_occupancy(j, p))(
+                jnp.asarray(pos))
+            got = tgrid.is_occupancy(t, torch.tensor(pos))
+        elif fn == "is_occupancy_xy":
+            want = jax.vmap(lambda p: jgrid.is_occupancy_xy(j, p))(
+                jnp.asarray(pos))
+            got = tgrid.is_occupancy_xy(t, torch.tensor(pos))
+        else:
+            want = jgrid.is_occupancy_xy_batch(j, jnp.asarray(pos[:, 0]),
+                                               jnp.asarray(pos[:, 1]))
+            got = tgrid.is_occupancy_xy_batch(
+                t, torch.tensor(pos[:, 0]).reshape(20, 30),
+                torch.tensor(pos[:, 1]).reshape(20, 30)).reshape(-1)
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < int(np.asarray(want).sum()) < len(pos)
+    assert np.asarray(want)[100:120].all()           # out of map: occupied
+
+
+@pytest.mark.parametrize("branch", ["packed16", "pair", "bare"])
+def test_terrain_sigma_cm_matches_jax(grids, branch):
+    """Each branch against the same branch of the JAX package (1e-12), and
+    against the exact trilinear field: exactly for the pair table and the
+    bare grid, within the f16 table's error for packed16."""
+    jg, tg = grids
+    drop = {"packed16": {}, "pair": dict(data_packed16=None),
+            "bare": dict(data_packed16=None, data_pair=None)}[branch]
+    j, t = jg.replace(**drop), tg.replace(**drop)
+    px, py, yaw = _poses(jg, seed=9)
+    want = jgrid.terrain_sigma_cm(j, *map(jnp.asarray, (px, py, yaw)))
+    got = tgrid.terrain_sigma_cm(t, *map(torch.tensor, (px, py, yaw)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12)
+    exact = jax.vmap(lambda p: jgrid.terrain_sigma(jg, p))(
+        jnp.asarray(np.stack([px, py, yaw], 1)))
+    # sigma <= ~0.1 on the hill; one f16 rounding is 2^-11 relative, and
+    # the low-y strip blends differently on the packed path
+    tol = 1e-4 if branch == "packed16" else 1e-12
+    keep = np.ones(len(px), bool)
+    if branch == "packed16":
+        keep[40:60] = False
+    np.testing.assert_allclose(got.numpy()[keep], np.asarray(exact)[keep],
+                               rtol=0, atol=tol)
+    assert (got.numpy()[100:120] == 0).all()         # out of map: zero
+    grid_shaped = tgrid.terrain_sigma_cm(
+        t, *(torch.tensor(a).reshape(20, 30) for a in (px, py, yaw)))
+    torch.testing.assert_close(grid_shaped.reshape(-1), got, rtol=0, atol=0)
+
+
+def test_get_terrain_variables_batch_matches_jax(grids):
+    jg, tg = grids
+    pos = _poses3(jg, seed=10)
+    want = jgrid.get_terrain_variables_batch(jg, jnp.asarray(pos))
+    got = tgrid.get_terrain_variables_batch(tg, torch.tensor(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-12)
+    want_v = jgrid.get_terrain_batch(jg, jnp.asarray(pos))
+    got_v = tgrid.get_terrain_batch(tg, torch.tensor(pos))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0,
+                               atol=1e-12)

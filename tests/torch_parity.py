@@ -1,6 +1,8 @@
 """Shared inputs of the PyTorch-port parity tests (tests/test_torch_*.py):
-the coarse hill grid of tests/test_alm.py in both packages, and hill
-scenarios drawn with numpy from a seed."""
+the coarse hill grid of tests/test_alm.py in both packages, hill scenarios
+drawn with numpy from a seed (straight-line init guesses for the solver
+tests, start/goal poses for the front-end tests), and the checks the
+front-end tests share (collision-free, reaches the goal)."""
 
 import jax
 import jax.numpy as jnp
@@ -113,3 +115,51 @@ def assert_lanes_match(ref, res, stable, spread, min_stable):
     tol = np.maximum(1e-8, 10.0 * spread)
     assert (dx[stable] <= tol[stable]).all(), (dx, tol, stable)
     assert (dx < 2e-2).all(), dx
+
+
+# ---------------------------------------------------------------------------
+# Front-end cases
+# ---------------------------------------------------------------------------
+
+def plan_scenarios(n, seed, reach=2.5):
+    """n start/goal pose pairs on the hill ([n, 3] numpy each), drawn as the
+    JAX package's front-end benchmark draws them."""
+    rng = np.random.default_rng(seed)
+    starts, goals = [], []
+    for _ in range(n):
+        ang = rng.uniform(-np.pi, np.pi)
+        s = rng.uniform(-3.5, -1.5, size=2)
+        g = np.clip(s + reach * np.array([np.cos(ang), np.sin(ang)]),
+                    -4.0, 4.0)
+        yaw = np.arctan2(g[1] - s[1], g[0] - s[0])
+        starts.append([s[0], s[1], yaw])
+        goals.append([g[0], g[1], yaw])
+    return np.asarray(starts), np.asarray(goals)
+
+
+def occupied_xy(grid, xy):
+    """2D occupancy of [n, 2] numpy points on a grid of either package,
+    out-of-map counted as occupied (numpy; independent of both lookups)."""
+    occ = np.asarray(grid.occ_xy)
+    ix = np.floor((xy[:, 0] - grid.origin[0]) / grid.xy_resolution).astype(int)
+    iy = np.floor((xy[:, 1] - grid.origin[1]) / grid.xy_resolution).astype(int)
+    inside = (ix >= 0) & (ix < occ.shape[0]) & (iy >= 0) & (iy < occ.shape[1])
+    return ~inside | occ[ix.clip(0, occ.shape[0] - 1),
+                         iy.clip(0, occ.shape[1] - 1)]
+
+
+def assert_paths_valid(grid, path, mask, success, starts, goals, max_step):
+    """Every successful lane's path starts at its start, ends at its goal,
+    is collision-free and takes bounded steps; a failed lane's mask is
+    empty.  path [B, L, 3], mask [B, L], success [B] as numpy."""
+    for b in range(path.shape[0]):
+        if not success[b]:
+            assert not mask[b].any(), b
+            continue
+        p = path[b][mask[b]]
+        assert len(p) >= 2, b
+        np.testing.assert_allclose(p[0, :2], starts[b, :2], atol=1e-6)
+        np.testing.assert_allclose(p[-1], goals[b], atol=1e-5)
+        assert not occupied_xy(grid, p[:, :2]).any(), b
+        d = np.linalg.norm(np.diff(p[:, :2], axis=0), axis=1)
+        assert d.max() < max_step + 1e-6, (b, d.max())

@@ -2,8 +2,8 @@
 `config.py`, limited to what the ported slice reads).
 
 Field names and defaults mirror the reference YAML (run_hill.yaml and
-siblings), exactly as in `uneven_planner_tpu/config.py`.  The front-end and
-MPC configs join when those modules are ported.
+siblings), exactly as in `uneven_planner_tpu/config.py`.  The MPC config
+joins when that module is ported.
 """
 
 from __future__ import annotations
@@ -47,6 +47,36 @@ class MapConfig:
         return (int(math.ceil(self.map_size_x / self.xy_resolution)),
                 int(math.ceil(self.map_size_y / self.xy_resolution)),
                 int(math.ceil(self.map_size_yaw / self.yaw_resolution)))
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Kinodynamic initializer parameters (run_hill.yaml:16-30; scoring
+    weights, lattice controls and collision interval as in
+    kino_astar.cpp:138-195)."""
+
+    yaw_resolution: float = 3.15
+    lambda_heu: float = 1.0
+    weight_r2: float = 1.0
+    weight_so2: float = 0.5
+    weight_v_change: float = 0.0
+    weight_delta_change: float = 0.0
+    weight_sigma: float = 10.0
+    time_interval: float = 0.3
+    collision_interval: float = 0.06
+    oneshot_range: float = 1.0
+    wheel_base: float = 0.26
+    max_steer: float = 0.5
+    max_vel: float = 0.5
+    # batched-search sizing: frontier states expanded per round, max rounds
+    frontier_size: int = 1024
+    max_rounds: int = 160
+    # dedup cell size; None -> min(map resolution, half the per-round arc
+    # progress), so a primitive always escapes its cell
+    dedup_resolution: float | None = None
+    # yaw bin width of the search dedup (finer than the reference's 3.15 rad
+    # half-plane bins, which cannot represent wall-following maneuvers)
+    dedup_yaw_resolution: float = 0.6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +135,8 @@ class ManagerConfig:
 class SceneConfig:
     name: str = "hill"
     map: MapConfig = dataclasses.field(default_factory=MapConfig)
+    frontend: FrontendConfig = dataclasses.field(
+        default_factory=FrontendConfig)
     alm: ALMConfig = dataclasses.field(default_factory=ALMConfig)
     manager: ManagerConfig = dataclasses.field(default_factory=ManagerConfig)
 

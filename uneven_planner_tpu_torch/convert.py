@@ -6,7 +6,9 @@ and the solver state (boundaries, duals, scalings).  The JAX package keeps
 the tables channel-major ([8, Ncells] f32 pair table, [6, 2*Ncells] f32
 words of the f16 table); the port keeps them row-major with 32-byte rows,
 so conversion is a transpose (and an 8-word pad for the f16 table) with
-the bits unchanged.
+the bits unchanged.  Front-end paths, search results and trajectories keep
+their layout; the port's carry a leading scenario dimension, which a single
+(un-vmapped) JAX result gets here.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 import torch
 
 from uneven_planner_tpu_torch import resolve_device
+from uneven_planner_tpu_torch.frontend.kino_init import KinoResult
+from uneven_planner_tpu_torch.minco.traj import SE2Traj
 from uneven_planner_tpu_torch.solver.alm import Boundary, DualState, Scaling
 from uneven_planner_tpu_torch.terrain import grid as tgrid
 
@@ -71,3 +75,41 @@ def duals_from_numpy(lam, mu, rho, device=None) -> DualState:
 def scaling_from_numpy(scale_fx, scale_cx, device=None) -> Scaling:
     dev = resolve_device(device)
     return Scaling(scale_fx=_t(scale_fx, dev), scale_cx=_t(scale_cx, dev))
+
+
+def _lanes(a, ndim: int, device) -> torch.Tensor:
+    """numpy -> tensor, with a leading scenario dimension added when the
+    array has `ndim - 1` dimensions (a single JAX result)."""
+    a = np.asarray(a)
+    return _t(a[None] if a.ndim == ndim - 1 else a, device)
+
+
+def path_from_numpy(path, mask, device=None):
+    """A padded front-end path [L, 3] or [B, L, 3] and its mask ->
+    (path [B, L, 3], mask [B, L]) tensors."""
+    dev = resolve_device(device)
+    return _lanes(path, 3, dev), _lanes(mask, 2, dev)
+
+
+def kino_result_from_numpy(res, device=None) -> KinoResult:
+    """The JAX package's KinoResult (fields as numpy arrays, from `plan` or
+    from `vmap(plan)`) -> the port's."""
+    dev = resolve_device(device)
+    path, mask = path_from_numpy(res.path, res.path_mask, dev)
+    opt = lambda a, nd: None if a is None else _lanes(a, nd, dev)
+    return KinoResult(path=path, path_mask=mask,
+                      success=_lanes(res.success, 1, dev),
+                      cost=_lanes(res.cost, 1, dev),
+                      rounds=_lanes(res.rounds, 1, dev),
+                      arena=opt(res.arena, 3),
+                      arena_parent=opt(res.arena_parent, 2))
+
+
+def traj_from_numpy(traj, device=None) -> SE2Traj:
+    """The JAX package's SE2Traj (c_xy [Nxy, 6, 2], ts_xy, c_yaw, ts_yaw;
+    single or vmapped) -> the port's batched SE2Traj."""
+    dev = resolve_device(device)
+    return SE2Traj(c_xy=_lanes(traj.c_xy, 4, dev),
+                   ts_xy=_lanes(traj.ts_xy, 2, dev),
+                   c_yaw=_lanes(traj.c_yaw, 4, dev),
+                   ts_yaw=_lanes(traj.ts_yaw, 2, dev))

@@ -1,14 +1,12 @@
-"""Build, binding and launch counters of the terrain-lookup CUDA kernels
-(`csrc/terrain_lookup.cu`).
+"""Binding and launch counters of the terrain-lookup CUDA kernels
+(`csrc/terrain_lookup.cu`), built and loaded at first use by
+`kernels/build.py`; importing this module needs no toolchain.
 
-The library is compiled at first use with `nvcc` for `sm_90a` into
-`_build/` beside the package (listed in `.gitignore`), keyed by a hash of
-the source, and loaded with ctypes; importing this module needs no
-toolchain.  Every launcher checks device, dtype, shape and contiguity,
-raises on anything the kernel does not take, enqueues on PyTorch's current
-stream and raises if `cudaGetLastError` reports a failed launch.  It never
-falls back to the plain PyTorch version: that choice is the caller's, by
-device (`terrain/grid.py`).
+Every launcher checks device, dtype, shape and contiguity, raises on
+anything the kernel does not take, enqueues on PyTorch's current stream and
+raises if `cudaGetLastError` reports a failed launch.  It never falls back
+to the plain PyTorch version: that choice is the caller's, by device
+(`terrain/grid.py`).
 
 `launches` counts kernel launches by name; only the launchers below add to
 it, one per launch.
@@ -17,26 +15,12 @@ it, one per launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "terrain_lookup.cu"),)
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 
 launches = {"terrain_tv_packed16": 0, "terrain_tv_pair": 0}
-
-_lock = threading.Lock()
-_lib = None
-build_log = ""
 
 
 def reset_launches():
@@ -44,57 +28,19 @@ def reset_launches():
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
+def _declare(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    geom = [i, i, i] + [f] * 11
+    lib.terrain_tv_packed16.argtypes = [p] * 6 + [i] + geom + [i, i, p]
+    lib.terrain_tv_packed16.restype = i
+    lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + geom + [i, p]
+    lib.terrain_tv_pair.restype = i
+    lib.terrain_lookup_error_string.argtypes = [i]
+    lib.terrain_lookup_error_string.restype = ctypes.c_char_p
 
 
-def library_path() -> str:
-    h = hashlib.sha256()
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libterrain_lookup_{h.hexdigest()[:16]}.so")
-
-
-def build() -> str:
-    """Compile the library if this source has not been built yet; returns
-    its path.  The compiler's output (with `-Xptxas -v` register counts) is
-    kept in `build_log`."""
-    global build_log
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            geom = [i, i, i] + [f] * 11
-            lib.terrain_tv_packed16.argtypes = \
-                [p] * 6 + [i] + geom + [i, i, p]
-            lib.terrain_tv_packed16.restype = i
-            lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + geom + [i, p]
-            lib.terrain_tv_pair.restype = i
-            lib.terrain_lookup_error_string.argtypes = [i]
-            lib.terrain_lookup_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("terrain_lookup", _declare)
+_library = LIBRARY.load
 
 
 def _check_poses(px, py, yaw):

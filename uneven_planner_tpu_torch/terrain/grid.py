@@ -1,6 +1,6 @@
 """SE(2) terrain field F: SE(2) -> R x S^2_+ as dense PyTorch tensors
-(port of `uneven_planner_tpu/terrain/grid.py`, the part the ALM solver
-runs).
+(port of `uneven_planner_tpu/terrain/grid.py`: the lookups of the ALM solver,
+and the index maps, occupancy reads and sigma lookup of the front end).
 
 The map is a dense grid over (x, y, yaw), xy clamped and yaw periodic, whose
 cells hold the RXS2 value (z, sigma, zb0, zb1) (uneven_map.h:46).  The
@@ -22,6 +22,11 @@ variables and their local Jacobian in (px, py, yaw), J written out
 analytically.  One `torch.autograd.Function` wraps whichever runs: the twin
 for CPU tensors, the kernel for CUDA tensors (or an error; never a quiet
 fallback).  Its backward and forward-mode products are formed from J.
+
+The front end's reads (occupancy, the bare-grid sigma corners, the RXS2 rows
+of `get_terrain_batch`) are plain table reads by index; they go through the
+gather kernel K3 (`kernels/gather.py:gather_rows`), with the index
+arithmetic and the blends around it as tensor operations.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from torch.autograd import forward_ad as fwAD
 
 from uneven_planner_tpu_torch.kernels import terrain_lookup as kernels
+from uneven_planner_tpu_torch.kernels.gather import gather_rows
 
 TWO_PI = 2.0 * math.pi
 
@@ -91,6 +97,15 @@ class TerrainGrid:
         n = self.voxel_num
         return (n[0] * self.xy_resolution, n[1] * self.xy_resolution,
                 n[2] * self.yaw_resolution)
+
+    @property
+    def min_boundary(self) -> Tuple[float, float, float]:
+        return self.origin
+
+    @property
+    def max_boundary(self) -> Tuple[float, float, float]:
+        o, m = self.origin, self.map_size
+        return (o[0] + m[0], o[1] + m[1], o[2] + m[2])
 
     def replace(self, **changes) -> "TerrainGrid":
         return dataclasses.replace(self, **changes)
@@ -197,7 +212,16 @@ def _to_index(f: torch.Tensor) -> torch.Tensor:
     return f.clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int64)
 
 
-def _cell(grid: TerrainGrid, px, py, yaw, low_y_rule: bool):
+def _to_index32(f: torch.Tensor) -> torch.Tensor:
+    """Floored float -> int32 (as the JAX package's index maps), for cell
+    indices that are bounded into a table right after: NaN -> 0, saturating
+    at +-2^30 so that a neighbour's `+ 1` cannot overflow."""
+    f = torch.nan_to_num(f, nan=0.0, posinf=2.0 ** 30, neginf=-2.0 ** 30)
+    return f.clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int32)
+
+
+def _cell(grid: TerrainGrid, px, py, yaw, low_y_rule: bool,
+          to_index=_to_index):
     """Index math of grid.py:571-583 (packed, with the low-y rule) and
     grid.py:803-815 (pair)."""
     nx, ny, nyaw = grid.voxel_num
@@ -212,7 +236,7 @@ def _cell(grid: TerrainGrid, px, py, yaw, low_y_rule: bool):
     low = (iyf < 0) if low_y_rule else torch.zeros_like(px, dtype=torch.bool)
     wy = torch.where(low, 0.0, wy)
     wt = _div(so2_diff(yaw, (iwf + 0.5) * yres + oyaw), yres)
-    ix, iy, iw = _to_index(ixf), _to_index(iyf), _to_index(iwf)
+    ix, iy, iw = to_index(ixf), to_index(iyf), to_index(iwf)
     inside = (px > ox + 1e-4) & (px < ox + nx * res - 1e-4) \
         & (py > oy + 1e-4) & (py < oy + ny * res - 1e-4)
     return dict(wx=wx, wy=wy, wt=wt, low=low, inside=inside,
@@ -442,3 +466,155 @@ def get_terrain_variables_cm(grid: TerrainGrid, px, py, yaw,
     if grid.data_pair is None:
         raise ValueError("grid has no pair table (with_pair_table)")
     return _terrain_tv(_runner(grid, "pair", True), px, py, yaw)
+
+
+# ---------------------------------------------------------------------------
+# Index math and occupancy (uneven_map.h:398-435, 490-500); batched over the
+# leading dimensions of `pos`
+# ---------------------------------------------------------------------------
+
+def _vec(values, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(values, dtype=like.dtype, device=like.device)
+
+
+def pos_to_index(grid: TerrainGrid, pos: torch.Tensor) -> torch.Tensor:
+    """[..., 3] SE(2) positions -> [..., 3] int64 cell indices (unbounded)."""
+    res_inv = _vec([1.0 / grid.xy_resolution, 1.0 / grid.xy_resolution,
+                    1.0 / grid.yaw_resolution], pos)
+    return _to_index(torch.floor((pos - _vec(grid.origin, pos)) * res_inv))
+
+
+def index_to_pos(grid: TerrainGrid, idx: torch.Tensor,
+                 dtype=torch.float64) -> torch.Tensor:
+    res = torch.tensor([grid.xy_resolution, grid.xy_resolution,
+                        grid.yaw_resolution], dtype=dtype, device=idx.device)
+    o = torch.tensor(grid.origin, dtype=dtype, device=idx.device)
+    return (idx.to(dtype) + 0.5) * res + o
+
+
+def bound_index(grid: TerrainGrid, idx: torch.Tensor) -> torch.Tensor:
+    """Clamp xy, wrap yaw (uneven_map.h:398-409)."""
+    n = grid.voxel_num
+    return torch.stack([idx[..., 0].clamp(0, n[0] - 1),
+                        idx[..., 1].clamp(0, n[1] - 1),
+                        torch.remainder(idx[..., 2], n[2])], dim=-1)
+
+
+def is_in_map(grid: TerrainGrid, pos: torch.Tensor) -> torch.Tensor:
+    """Strictly inside the map with 1e-4 margins, over the last dimension
+    of `pos` ([..., 2] or [..., 3])."""
+    d = pos.shape[-1]
+    lo = _vec(grid.min_boundary[:d], pos)
+    hi = _vec(grid.max_boundary[:d], pos)
+    return (pos > lo + 1e-4).all(-1) & (pos < hi - 1e-4).all(-1)
+
+
+def _read(table: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
+    """table.reshape(-1)[lin] for an index tensor of any shape, through K3.
+    The callers pass int32 linear indices (every table here has fewer than
+    2^31 cells), which halves the index bytes K3 reads."""
+    return gather_rows(table.reshape(-1), lin.reshape(-1)).reshape(lin.shape)
+
+
+def is_occupancy(grid: TerrainGrid, pos: torch.Tensor) -> torch.Tensor:
+    """SE(2) occupancy of [..., 3] positions; out-of-map counts as occupied
+    (the safe planning semantics of the JAX package)."""
+    nx, ny, nyaw = grid.voxel_num
+    idx = bound_index(grid, pos_to_index(grid, pos))
+    lin = ((idx[..., 0] * ny + idx[..., 1]) * nyaw + idx[..., 2]) \
+        .to(torch.int32)
+    return _read(grid.occ, lin) | ~is_in_map(grid, pos)
+
+
+def is_occupancy_xy_batch(grid: TerrainGrid, px: torch.Tensor,
+                          py: torch.Tensor) -> torch.Tensor:
+    """2D occupancy from coordinate tensors of one shape
+    (uneven_map.h:490-500); out of the map counts as occupied."""
+    nx, ny, _ = grid.voxel_num
+    ox, oy, _ = grid.origin
+    ix = _to_index32(torch.floor(_div(px - ox, grid.xy_resolution)))
+    iy = _to_index32(torch.floor(_div(py - oy, grid.xy_resolution)))
+    inside = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    lin = ix.clamp(0, nx - 1) * ny + iy.clamp(0, ny - 1)
+    return _read(grid.occ_xy, lin) | ~inside
+
+
+def is_occupancy_xy(grid: TerrainGrid, pos_xy: torch.Tensor) -> torch.Tensor:
+    """2D occupancy from [..., 2 or more] positions (x, y, ...)."""
+    return is_occupancy_xy_batch(grid, pos_xy[..., 0], pos_xy[..., 1])
+
+
+# ---------------------------------------------------------------------------
+# Front-end and metric lookups
+# ---------------------------------------------------------------------------
+
+def terrain_sigma_cm(grid: TerrainGrid, px, py, yaw) -> torch.Tensor:
+    """Interpolated sigma at coordinate tensors of one shape (yaw normalized
+    into [-pi, pi)): the flatness term of the front end's g-score
+    (kino_astar.cpp:187-195).  Reads the f16 table when attached (kernel
+    K1), else the pair table (K2), else the 8 corners of the bare grid
+    (K3)."""
+    if grid.data_packed16 is not None:
+        return get_terrain_variables_cm_packed16(grid, px, py, yaw)[6]
+    if grid.data_pair is not None:
+        return get_terrain_variables_cm(grid, px, py, yaw)[6]
+    nyaw = grid.voxel_num[2]
+    ny = grid.voxel_num[1]
+    k = _cell(grid, px, py, yaw, low_y_rule=False, to_index=_to_index32)
+    iw0, iw1 = k["iw"], torch.remainder(k["iw"] + 1, nyaw)
+    idx8 = torch.stack([(x * ny + y) * nyaw + w
+                        for x in (k["ix0"], k["ix1"])
+                        for y in (k["iy0"], k["iy1"])
+                        for w in (iw0, iw1)])               # [8, ...]
+    v = _read(grid.data[..., 1], idx8)
+    wx, wy, wt = k["wx"], k["wy"], k["wt"]
+    vt = v[0::2] * (1.0 - wt) + v[1::2] * wt         # (x0y0, x0y1, x1y0, x1y1)
+    vy = vt[0::2] * (1.0 - wy) + vt[1::2] * wy       # (x0, x1)
+    val = vy[0] * (1.0 - wx) + vy[1] * wx
+    return torch.where(k["inside"], val, 0.0)
+
+
+def get_terrain_batch(grid: TerrainGrid, poses: torch.Tensor) -> torch.Tensor:
+    """[M, 4] RXS2 values (z, sigma, zb0, zb1) at [M, 3] SE(2) poses:
+    trilinear interpolation over the 8 corner rows of the dense grid
+    (uneven_map.h:154-201); out-of-map poses read zeros."""
+    nx, ny, nyaw = grid.voxel_num
+    half = _vec([0.5 * grid.xy_resolution, 0.5 * grid.xy_resolution,
+                 0.5 * grid.yaw_resolution], poses)
+    o = _vec(grid.origin, poses)
+    res_inv = _vec([1.0 / grid.xy_resolution, 1.0 / grid.xy_resolution,
+                    1.0 / grid.yaw_resolution], poses)
+    pos_m = poses - half
+    pos_m = torch.cat([pos_m[:, :2], normalize_so2(pos_m[:, 2:])], dim=1)
+    idxf = torch.floor((pos_m - o) * res_inv)
+    idx_pos = (idxf + 0.5) / res_inv + o
+    diff = torch.stack([
+        (poses[:, 0] - idx_pos[:, 0]) * res_inv[0],
+        (poses[:, 1] - idx_pos[:, 1]) * res_inv[1],
+        so2_diff(poses[:, 2], idx_pos[:, 2]) * res_inv[2]], dim=1)
+    idx = _to_index32(idxf)
+    M = poses.shape[0]
+    two = torch.arange(2, device=poses.device, dtype=torch.int32)
+    ix = (idx[:, 0, None] + two).clamp(0, nx - 1)               # [M, 2]
+    iy = (idx[:, 1, None] + two).clamp(0, ny - 1)
+    iw = torch.remainder(idx[:, 2, None] + two, nyaw)
+    flat = ((ix[:, :, None, None] * ny + iy[:, None, :, None]) * nyaw
+            + iw[:, None, None, :])                             # [M, 2, 2, 2]
+    v = gather_rows(grid.data.reshape(-1, 4), flat.reshape(-1)) \
+        .reshape(M, 2, 2, 2, 4)
+    w0 = diff[:, 0].reshape(-1, 1, 1, 1)
+    w1 = diff[:, 1].reshape(-1, 1, 1)
+    w2 = diff[:, 2].reshape(-1, 1)
+    vx = v[:, 0] * (1 - w0) + v[:, 1] * w0
+    vy = vx[:, 0] * (1 - w1) + vx[:, 1] * w1
+    val = vy[:, 0] * (1 - w2) + vy[:, 1] * w2
+    return torch.where(is_in_map(grid, poses)[:, None], val, 0.0)
+
+
+def get_terrain_variables_batch(grid: TerrainGrid,
+                                poses: torch.Tensor) -> torch.Tensor:
+    """[M, 7] terrain variables at [M, 3] SE(2) poses from the dense grid
+    (no table needed): the post-solve metrics' lookup."""
+    value = get_terrain_batch(grid, poses)
+    return _tv_from_fields(value[:, 1], value[:, 2], value[:, 3],
+                           poses[:, 2]).T
