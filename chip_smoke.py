@@ -6,14 +6,19 @@
 Phases, each of which must pass (exit code 1 otherwise):
   1. device   CUDA present, full-fp32 matmul settings, card name and power
               limit from nvidia-smi;
-  2. build    the terrain-lookup and gather kernels, compiled with nvcc
-              from uneven_planner_tpu_torch/csrc, both compilers at once;
+  2. build    the terrain-lookup, gather, elementwise and ADMM kernels,
+              compiled with nvcc from uneven_planner_tpu_torch/csrc, all
+              compilers at once;
   3. kernels  each kernel against its plain PyTorch twin, timed beside the
-              twin, its bound and (for the gathers) the PyTorch library call:
-              the terrain lookups on the full hill grid (200 x 200 x 64) at
-              the headline's lookup count (4096 lanes x 90 samples) and at
-              the planning path's shapes and modes, the gathers at the TPU
-              probes' shapes and at the planning path's;
+              twin, its bound and (where one exists) the PyTorch library
+              call: the terrain lookups on the full hill grid (200 x 200 x
+              64) at the headline's lookup count (4096 lanes x 90 samples)
+              and at the planning path's and the pipeline's shapes and
+              modes, the gathers at the TPU probes' shapes, the planning
+              path's, the pipeline's and the tracking path's, tanh_affine
+              at the TPU probe's shape and at a large one, the ADMM loop on
+              the QPs of a real tracking tick (256 lanes, warm-started) and
+              on random box QPs, with a split run held bit for bit;
   4. small    8 lanes solved on the card (fp32, kernels) against the same
               lanes on the CPU (fp64, plain twins);
   5. headline the main path at full width: hill grid with its f16 table,
@@ -30,7 +35,16 @@ Phases, each of which must pass (exit code 1 otherwise):
               map with the default front-end sizing, 256 scenarios: one
               warm-up batch, one fresh batch for the search alone, one fresh
               timed batch whose kernel launches are counted; path checks,
-              post-solve metrics, and a profile of one search.
+              post-solve metrics, and a profile of one search;
+  9. track-ref 4 lanes of figure-eight tracking, 40 ticks, on the card
+              (fp32, ADMM kernel) against the CPU (fp32, plain twin);
+ 10. mpc      the tracking MPC alone at full width: 256 lanes x 256 ticks
+              on the figure-eight; ticks/s, tracking error, QP iteration
+              statistics, launch counts, and a profile of a few ticks;
+ 11. pipeline the plan -> track path at full width: plan_track_batch on 64
+              scenarios x 500 ticks; scenarios/s, planned-and-converged
+              share, tracking error; then search, solve and tracking once
+              more, each alone, for the split of the time.
 Prints the kernels' JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package beside
 it, it exits 2 and prints no result.
@@ -61,6 +75,29 @@ TOL = {"tv": (1e-5, 1e-5), "jac": (1e-4, 1e-4)}   # (atol, rtol), fp32
 # The gathers move values unchanged: they must equal their twins exactly.
 TOL_GATHER = 0.0
 PLAN_BATCH = 256
+# K5: tanhf against torch.tanh in units of the last place, and the affine
+# result absolutely (it cancels near tanh(x) = -1/2).
+TOL_TANH_ULP = 2
+TOL_TANH_ABS = 5e-7
+# K6 against its twin on the same tensors.  The two sum in different orders,
+# so: over a fixed count of iterations (no termination test) x and y within
+# TOL_ADMM_REL of the twin, relative to the lane's largest entry; with the
+# termination test at a tolerance well above fp32 rounding (1e-4) equal
+# iteration counts on MIN_EQUAL_ITERS_SHARE of the lanes and no lane further
+# than MAX_ITERS_DIFF from its twin; at the path's own
+# tolerance (1e-6, at the fp32 noise floor, where the iteration at which a
+# residual first dips under its limit depends on the last bits) the
+# solutions within TOL_ADMM_REL_STOPPED and the counts only printed.
+TOL_ADMM_REL = 5e-5
+TOL_ADMM_REL_STOPPED = 1e-3
+ADMM_LOOSE_EPS = 1e-4
+MIN_EQUAL_ITERS_SHARE = 0.7
+MAX_ITERS_DIFF = 1
+# fp32 arithmetic of one tanh_affine element (tanhf counted as 20 operations)
+OPS_TANH = 22
+MPC_LANES, MPC_TICKS = 256, 256
+PIPE_LANES, PIPE_TICKS = 64, 500
+MAX_TRACK_ERR = 0.05      # metres, mean over a lane's pre-goal ticks
 
 
 def log(*a):
@@ -148,8 +185,10 @@ def phase_device():
 
 
 def phase_build():
-    from uneven_planner_tpu_torch.kernels import build, gather, terrain_lookup
-    libs = [terrain_lookup.LIBRARY, gather.LIBRARY]
+    from uneven_planner_tpu_torch.kernels import (admm, build, elementwise,
+                                                  gather, terrain_lookup)
+    libs = [terrain_lookup.LIBRARY, gather.LIBRARY, elementwise.LIBRARY,
+            admm.LIBRARY]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     for lib in libs:
@@ -194,28 +233,32 @@ def _err(got, want, atol, rtol):
 def terrain_cases():
     """(path, M, kernel, exact, want_jac) for every shape and mode at which
     a main path launches K1 or K2.  Headline: 4096 lanes x 90 samples, each
-    mode.  Planning path (256 scenarios, ProblemShape(10, 20, int_K=16)):
-    K1 hi-only without J on the search's [256, 10240] candidates, K1 hi-only
-    with J on the solver's [256, S] samples, K2 with J in init_scaling on
-    [256, S] (cost gradient) and on [256 x num_vars, S] (the forward-mode
-    constraint Jacobian)."""
+    mode.  Planning path (256 scenarios, ProblemShape(10, 20, int_K=16))
+    and pipeline (64 scenarios, int_K=8), B scenarios each: K1 hi-only
+    without J on the search's [B, 10240] candidates, K1 hi-only with J on
+    the solver's [B, S] samples, K2 with J in init_scaling on [B, S] (cost
+    gradient) and on [B x num_vars, S] (the forward-mode constraint
+    Jacobian)."""
     from uneven_planner_tpu_torch.solver import alm
-    shape = alm.ProblemShape(piece_xy=10, piece_yaw=20, int_K=16)
-    S, n = shape.equal_num, shape.num_vars
     cases = [("headline", M_HEADLINE, name, exact, jac)
              for name, exact in [("terrain_tv_packed16", False),
                                  ("terrain_tv_packed16", True),
                                  ("terrain_tv_pair", True)]
              for jac in (True, False)]
-    cases += [
-        ("planning: search sigma", PLAN_BATCH * 10240, "terrain_tv_packed16",
-         False, False),
-        ("planning: solver step", PLAN_BATCH * S, "terrain_tv_packed16",
-         False, True),
-        ("planning: init_scaling cost", PLAN_BATCH * S, "terrain_tv_pair",
-         True, True),
-        ("planning: init_scaling jacobian", PLAN_BATCH * n * S,
-         "terrain_tv_pair", True, True)]
+    # the pipeline runs the same four calls at 64 scenarios and int_K=8
+    for path, B, int_K in (("planning", PLAN_BATCH, 16),
+                           ("pipeline", PIPE_LANES, 8)):
+        shape = alm.ProblemShape(piece_xy=10, piece_yaw=20, int_K=int_K)
+        S, n = shape.equal_num, shape.num_vars
+        cases += [
+            (f"{path}: search sigma", B * 10240, "terrain_tv_packed16",
+             False, False),
+            (f"{path}: solver step", B * S, "terrain_tv_packed16", False,
+             True),
+            (f"{path}: init_scaling cost", B * S, "terrain_tv_pair", True,
+             True),
+            (f"{path}: init_scaling jacobian", B * n * S, "terrain_tv_pair",
+             True, True)]
     return cases
 
 
@@ -446,7 +489,8 @@ def _exact_err(got, want):
 
 def phase_gather_kernels(device):
     """K3 and K4 against their twins (must be equal bit for bit) at the TPU
-    probes' shapes and the planning path's, timed beside the twin and the
+    probes' shapes, the planning path's, the pipeline's and the tracking
+    path's (MPC alone and pipeline), timed beside the twin and the
     PyTorch library call on the same inputs (the library calls do not clip,
     so they get the indices clipped beforehand).  `ms`, `plain_ms` and
     `library_ms` are `device_ms` readings, calls back to back, as for K1 and
@@ -477,7 +521,20 @@ def phase_gather_kernels(device):
         variants.append(v)
         del got, want
 
-    # K3 gather_rows: table [N, W] (or [N]), idx [M]
+    # K3 gather_rows: table [N, W] (or [N]), idx [M].  The tracking rows are
+    # the piece coefficients `eval_traj` reads, [B * pieces, 6 * Dim] f32 by
+    # int64: 30 reference samples per lane on every tick (figure-eight: 256
+    # lanes x 16 pieces; pipeline: 64 lanes x 10 xy and 20 yaw pieces) and
+    # the pipeline's 1024 samples per lane of `non_hol_error`.
+    track_rows = [
+        (f"{path}: [{B * n_p}, {6 * dim}] f32, int64", (B * n_p, 6 * dim),
+         B * T)
+        for path, B, T, pieces in [
+            ("mpc reference", MPC_LANES, 30, ((16, 2), (16, 1))),
+            ("pipeline reference", PIPE_LANES, 30, ((10, 2), (20, 1))),
+            ("pipeline non_hol_error", PIPE_LANES, 1024, ((10, 2), (20, 1)))]
+        for n_p, dim in pieces]
+    m_occ_pipe = PIPE_LANES * (10240 * 3 + 1024 * 64)
     for label, table, M, idt in [
             ("e1_gather C: [32768, 8] f32", rand((32768, 8)), 2785280,
              torch.int32),
@@ -488,8 +545,16 @@ def phase_gather_kernels(device):
             ("path occupancy: [40000] bool",
              torch.rand(n_occ, generator=gen).to(device) < 0.1, m_occ,
              torch.int32),
+            ("pipeline occupancy: [40000] bool",
+             torch.rand(n_occ, generator=gen).to(device) < 0.1, m_occ_pipe,
+             torch.int32),
             ("path RXS2 rows: [2560000, 4] f32", rand((200 * 200 * 64, 4)),
-             PLAN_BATCH * 4096 * 8, torch.int32)]:
+             PLAN_BATCH * 4096 * 8, torch.int32),
+            ("pipeline RXS2 rows: [2560000, 4] f32",
+             rand((200 * 200 * 64, 4)), PIPE_LANES * 4096 * 8,
+             torch.int32)] + [
+            (label, rand(shape), M, torch.int64)
+            for label, shape, M in track_rows]:
         N = table.shape[0]
         idx = _edge_indices(N, (M,), 11, idt, device)
         clipped = idx.long().clamp(0, N - 1)
@@ -503,7 +568,17 @@ def phase_gather_kernels(device):
             cold=N * row > 25e6)
         del table, idx, clipped
 
-    # K4 gather_along: x [B, N], idx [B, K] (axis 1) or x [N, C], idx [K, C]
+    # K4 gather_along: x [B, N], idx [B, K] (axis 1) or x [N, C], idx [K, C].
+    # The tracking rows are `locate_piece`'s reads of the cumulative piece
+    # times, [B, pieces] by [B, samples] int64, beside K3's above.
+    track_along = [
+        (f"{path} locate_piece: [{B}, {n_p}] by [{B}, {T}]", (B, n_p),
+         (B, T), 1, torch.int64)
+        for path, B, T, pieces in [
+            ("mpc reference", MPC_LANES, 30, (16,)),
+            ("pipeline reference", PIPE_LANES, 30, (10, 20)),
+            ("pipeline non_hol_error", PIPE_LANES, 1024, (10, 20))]
+        for n_p in pieces]
     for label, xs, ishape, axis, idt in [
             ("e5_dyngather lane: [4096, 128] axis 1", (4096, 128),
              (4096, 128), 1, torch.int32),
@@ -512,7 +587,12 @@ def phase_gather_kernels(device):
             ("path pool[sel]: [256, 8192] by [256, 1024]",
              (PLAN_BATCH, 8192), (PLAN_BATCH, 1024), 1, torch.int64),
             ("path best_g[cells]: [256, 440000] by [256, 10240]",
-             (PLAN_BATCH, 440000), (PLAN_BATCH, 10240), 1, torch.int32)]:
+             (PLAN_BATCH, 440000), (PLAN_BATCH, 10240), 1, torch.int32),
+            ("pipeline pool[sel]: [64, 8192] by [64, 1024]",
+             (PIPE_LANES, 8192), (PIPE_LANES, 1024), 1, torch.int64),
+            ("pipeline best_g[cells]: [64, 440000] by [64, 10240]",
+             (PIPE_LANES, 440000), (PIPE_LANES, 10240), 1, torch.int32)] \
+            + track_along:
         x = rand(xs)
         N = xs[axis]
         idx = _edge_indices(N, ishape, 13, idt, device)
@@ -763,6 +843,511 @@ def phase_plan_profile(ctx):
     log("# plan-profile " + json.dumps(out))
     return out
 
+# ---------------------------------------------------------------------------
+# K5 tanh_affine and K6 admm_iterations
+# ---------------------------------------------------------------------------
+
+def phase_elementwise_kernel(device):
+    """K5 against its twin at the TPU probe's shape and at a large one.  The
+    twin is two PyTorch calls (tanh, then a fused multiply-add kernel at
+    best); no single PyTorch call computes the function, so its time stands
+    in the library column and is marked as such."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.kernels import elementwise
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    variants = []
+    for label, shape in [("e31 probe A: [256, 512] f32", (256, 512)),
+                         ("large: [4096, 8192] f32", (4096, 8192))]:
+        x = (torch.randn(shape, generator=gen) * 3.0).to(device)
+        x.view(-1)[0] = 1.0                      # the probe's own input
+        before = elementwise.launches["tanh_affine"]
+        got = elementwise.tanh_affine(x, 2.0, 1.0)
+        pure = elementwise.tanh_affine(x, 1.0, 0.0)
+        torch.cuda.synchronize()
+        want = elementwise.tanh_affine_twin(x, 2.0, 1.0)
+        bits = lambda a: a.view(torch.int32).long()
+        key = lambda i: torch.where(i < 0, -(i & 0x7fffffff), i)
+        ulp = int((key(bits(pure)) - key(bits(torch.tanh(x)))).abs().max())
+        ref = np.tanh(x.cpu().numpy().astype(np.float64)) * 2.0 + 1.0
+        n = x.numel()
+        nbytes = 2 * 4 * n
+        plain = device_ms(lambda: elementwise.tanh_affine_twin(x, 2.0, 1.0))
+        v = dict(name="tanh_affine", shape=label,
+                 max_abs_err=float((got - want).abs().max()),
+                 max_ulp_tanh=ulp,
+                 max_abs_err_numpy=float(np.abs(got.cpu().numpy() - ref)
+                                         .max()),
+                 launched=elementwise.launches["tanh_affine"] - before,
+                 ms=device_ms(lambda: elementwise.tanh_affine(x, 2.0, 1.0)),
+                 plain_ms=plain, library_ms=plain,
+                 library="the twin (two PyTorch calls)",
+                 bound_ms=max(nbytes / PEAK_BYTES,
+                              n * OPS_TANH / PEAK_F32) * 1e3,
+                 bound_by=("bytes" if nbytes / PEAK_BYTES
+                           >= n * OPS_TANH / PEAK_F32 else "operations"),
+                 bytes=nbytes)
+        log("# kernel " + json.dumps(v))
+        variants.append(v)
+        del x, got, pure, want
+    bad = [v for v in variants if v["max_ulp_tanh"] > TOL_TANH_ULP
+           or v["max_abs_err"] > TOL_TANH_ABS
+           or v["max_abs_err_numpy"] > 2 * TOL_TANH_ABS or v["launched"] != 2]
+    if bad:
+        raise RuntimeError(f"tanh_affine disagrees with its twin: {bad}")
+
+    # The probe's own program (experiments/e31_pallas.py probe A), the only
+    # "path" this kernel has: ones [256, 512] through the kernel, held
+    # against numpy as the probe holds it, with the launches counted.
+    elementwise.reset_launches()
+    y = elementwise.tanh_affine(torch.ones((256, 512), device=device), 2.0,
+                                1.0).cpu().numpy()
+    probe = dict(launches=elementwise.launches["tanh_affine"],
+                 max_abs_err_numpy=float(np.abs(y - (np.tanh(1.0) * 2 + 1))
+                                         .max()))
+    log("# probe-a " + json.dumps(probe))
+    if probe["launches"] != 1 or not np.allclose(y, np.tanh(1.0) * 2 + 1):
+        raise RuntimeError(f"probe A's program failed: {probe}")
+    return variants, probe
+
+
+def _f8_starts(n, rng):
+    """Perturbed start states on the figure-eight, drawn as the JAX
+    package's MPC benchmark draws them."""
+    import numpy as np
+    s0 = np.zeros((n, 3), np.float32)
+    s0[:, 0] = rng.uniform(-0.05, 0.05, size=n)
+    s0[:, 1] = rng.uniform(-0.05, 0.05, size=n)
+    s0[:, 2] = np.pi / 4 + rng.uniform(-0.1, 0.1, size=n)
+    return s0
+
+
+def _tick_qps(device, lanes=MPC_LANES, warm_ticks=12):
+    """The two first QPs of a real tracking tick: `lanes` controllers on the
+    figure-eight are run for `warm_ticks` ticks, then the next tick's
+    reference is sampled and its first relinearisation pass (primal warm
+    start, zero duals) and second pass (primal and dual warm start) are
+    assembled as `mpc_step` assembles them.  Returns [(label, unscaled QP,
+    x0, y0)]."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.minco.traj import expand_traj
+    from uneven_planner_tpu_torch.mpc import tracker, traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    from uneven_planner_tpu_torch.solver import admm_qp
+    cfg = MPCConfig()
+    f8 = expand_traj(traj_msg.figure_eight(0.5, dtype=torch.float32,
+                                           device=device), lanes)
+    s0 = torch.as_tensor(_f8_starts(lanes, np.random.default_rng(31)),
+                         device=device)
+    s = rollout.roll_init(s0, cfg)
+    for _ in range(warm_ticks):
+        s, _, _ = rollout.tick(f8, s, cfg, 0.01, 3, None)
+    refs, _ = tracker.get_ref_points(f8, s.t, cfg)
+    refs = tracker.smooth_yaw(refs, s.state[:, 2])
+    dref = torch.zeros_like(refs[:, :2])
+    kw = dict(rho=cfg.qp_rho, sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
+              eps_abs=cfg.qp_abs_tol, eps_rel=cfg.qp_rel_tol,
+              max_iter=cfg.qp_max_iter, polish=False, adaptive_rho=False,
+              fixed_iters=cfg.qp_scan_iters)
+    out, cases = s.output, []
+    y = s0.new_zeros((lanes, 4 * cfg.predict_steps - 2))
+    for label in ("tick pass 1 (x warm, y = 0)", "tick pass 2 (x, y warm)"):
+        xbar = tracker.predict_motion(s.state, out, cfg)
+        qp = tracker.assemble_qp_condensed(xbar, out, refs, dref, cfg)
+        x0 = out.transpose(1, 2).reshape(lanes, -1)
+        cases.append((label, tuple(a.contiguous() for a in qp), x0, y))
+        sol = admm_qp.solve_qp(*qp, x0=x0, y0=y, **kw)
+        out = sol.x.reshape(lanes, cfg.predict_steps, 2).transpose(1, 2)
+        y = sol.y
+    return cases, cfg
+
+
+def _random_box_qps(device, lanes=MPC_LANES, n=60, m=118, seed=17):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(lanes, n, n))
+    P = L @ L.transpose(0, 2, 1) + n * np.eye(n)
+    to = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return tuple(map(to, (P, rng.normal(size=(lanes, n)) * 3,
+                          rng.normal(size=(lanes, m, n)),
+                          -np.abs(rng.normal(size=(lanes, m))) - 0.1,
+                          np.abs(rng.normal(size=(lanes, m))) + 0.1)))
+
+
+def phase_admm_kernel(device):
+    """K6 against its twin on the same CUDA tensors: the QPs of a real
+    tracking tick (256 lanes) and random SPD box QPs of the same shape,
+    three runs each (see the tolerances at the top): a fixed count of
+    iterations, a loose termination test, and the path's own test.  For the
+    last, both solutions are also held against the f64 solution of the same
+    QP computed on the CPU, by distance and by KKT residuals evaluated in
+    f64; a run split 25 + 375 must equal one of 400 bit for bit.  Times: the
+    kernel and the twin for the path's run (the twin as one captured graph
+    of its ~17,000 kernels, so host launch cost is not counted), beside the
+    bound for the iterations this data needs."""
+    import torch
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.solver import admm_qp
+    cases, cfg = _tick_qps(device)
+    cases.append(("random box QPs, cold", _random_box_qps(device), None,
+                  None))
+    # the pipeline's batch width
+    cases.append(_tick_qps(device, lanes=PIPE_LANES)[0][0])
+    path_kw = dict(sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
+                   eps_abs=cfg.qp_abs_tol, eps_rel=cfg.qp_rel_tol,
+                   max_iter=cfg.qp_max_iter)
+    budget = cfg.qp_scan_iters
+
+    def rel(a, b):
+        scale = b.abs().amax(-1, keepdim=True).clamp(min=1e-3)
+        return float(((a - b).abs() / scale).max())
+
+    variants = []
+    for label, qp, x0, y0 in cases:
+        setup = admm_qp.setup_qp(*qp, rho=cfg.qp_rho, sigma=cfg.qp_sigma,
+                                 x0=x0, y0=y0)
+        d, s = setup.data, setup.state
+        B, n, m = d.P.shape[0], d.P.shape[1], d.A.shape[1]
+
+        def both(**over):
+            kw = dict(path_kw, **over)
+            got = admm.admm_iterations(d, s, n_iters=budget, **kw)
+            want = admm.admm_iterations_twin(d, s, n_iters=budget, **kw)
+            torch.cuda.synchronize()
+            return got, want, dict(
+                max_rel_err_x=rel(got.x, want.x),
+                max_rel_err_y=rel(got.y, want.y),
+                iters_equal_share=float((got.it == want.it).float().mean()),
+                iters_differ=int((got.it != want.it).sum()),
+                iters_max_diff=int((got.it - want.it).abs().max()),
+                iters_mean=float(got.it.float().mean()),
+                iters_max=int(got.it.max()))
+
+        _, _, fixed = both(eps_abs=0.0, eps_rel=0.0)
+        _, _, loose = both(eps_abs=ADMM_LOOSE_EPS, eps_rel=ADMM_LOOSE_EPS)
+        got, want, stopped = both()
+
+        # both against the f64 solution of the same QP, on the CPU
+        cpu64 = lambda a: None if a is None else a.double().cpu()
+        qp64 = [cpu64(a) for a in qp]
+        star = admm_qp.solve_qp(
+            *qp64, rho=cfg.qp_rho, sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
+            eps_abs=1e-10, eps_rel=1e-10, max_iter=3000, x0=cpu64(x0),
+            y0=cpu64(y0), polish=False, adaptive_rho=False)
+        kkt = {}
+        for who, st in (("kernel", got), ("twin", want)):
+            xu = cpu64(setup.D * st.x)
+            yu = cpu64(d.cinv[:, None] * setup.E * st.y)
+            stat, prim, comp = admm_qp.kkt_residuals(*qp64, xu, yu)
+            kkt[who] = dict(dx_f64=float((xu - star.x).abs().max()),
+                            stat=float(stat.max()), prim=float(prim.max()),
+                            comp=float(comp.max()))
+        # split run: 25 + 375 against 400
+        part = admm.admm_iterations(d, s, n_iters=25, **path_kw)
+        part = admm.admm_iterations(d, part, n_iters=budget - 25, **path_kw)
+        torch.cuda.synchronize()
+        split_equal = all(torch.equal(a, b) for a, b in zip(got, part))
+
+        its = got.it.long()
+        flops = float(its.sum()) * 2 * (4 * m * n + 2 * n * n)
+        nbytes = 4 * B * (2 * n * n + m * n + 2 * n + 4 * m + 1
+                          + 2 * (n + 2 * m + 6))
+        per_sm = -(-B // 132)      # lanes the busiest SM must run in turn
+        kern = lambda: admm.admm_iterations(d, s, n_iters=budget, **path_kw)
+        twin = lambda: admm.admm_iterations_twin(d, s, n_iters=budget,
+                                                 **path_kw)
+        v = dict(
+            name="admm_iterations", shape=f"{label}: {B} lanes, n = {n}, "
+            f"m = {m}, budget {budget}",
+            max_abs_err=float(max((got.x - want.x).abs().max(),
+                                  (got.y - want.y).abs().max())),
+            fixed_count=fixed, loose_test=loose, path_test=stopped,
+            at_budget_share=float((its >= budget).float().mean()),
+            f64_iters_max=int(star.iters.max()), kkt=kkt,
+            split_equal=split_equal,
+            finite=bool(torch.isfinite(got.x).all()),
+            ms=device_ms(kern, reps=15, inner=4),
+            plain_ms=device_ms(twin, reps=3, inner=1), library_ms=None,
+            bound_ms=max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
+            bound_by=("operations" if flops / PEAK_F32
+                      >= nbytes / PEAK_BYTES else "bytes"),
+            bound_ms_at_occupancy=float(its.max()) * per_sm * 2
+            * (4 * m * n + 2 * n * n) / (PEAK_F32 / 132) * 1e3,
+            flops=flops, bytes=nbytes,
+            shared_bytes_per_lane=admm.shared_bytes(n, m))
+        log("# kernel " + json.dumps(v))
+        variants.append(v)
+    bad = [v for v in variants
+           if v["fixed_count"]["max_rel_err_x"] > TOL_ADMM_REL
+           or v["fixed_count"]["max_rel_err_y"] > TOL_ADMM_REL
+           or v["fixed_count"]["iters_differ"]
+           or v["loose_test"]["iters_equal_share"] < MIN_EQUAL_ITERS_SHARE
+           or v["loose_test"]["iters_max_diff"] > MAX_ITERS_DIFF
+           or v["loose_test"]["max_rel_err_x"] > TOL_ADMM_REL_STOPPED
+           or v["path_test"]["max_rel_err_x"] > TOL_ADMM_REL_STOPPED
+           or not v["finite"] or not v["split_equal"]
+           or v["kkt"]["kernel"]["dx_f64"]
+           > 2 * v["kkt"]["twin"]["dx_f64"] + 1e-5
+           or v["kkt"]["kernel"]["stat"] > 2 * v["kkt"]["twin"]["stat"] + 1e-4
+           or v["kkt"]["kernel"]["prim"] > 2 * v["kkt"]["twin"]["prim"] + 1e-5]
+    if bad:
+        raise RuntimeError(f"admm_iterations disagrees with its twin: {bad}")
+    return variants
+
+
+# ---------------------------------------------------------------------------
+# the tracking path
+# ---------------------------------------------------------------------------
+
+def all_launches():
+    from uneven_planner_tpu_torch.kernels import (admm, elementwise, gather,
+                                                  terrain_lookup)
+    return {**terrain_lookup.launches, **gather.launches,
+            **elementwise.launches, **admm.launches}
+
+
+def reset_all_launches():
+    from uneven_planner_tpu_torch.kernels import (admm, elementwise, gather,
+                                                  terrain_lookup)
+    for mod in (admm, elementwise, gather, terrain_lookup):
+        mod.reset_launches()
+
+
+def qp_statistics(tres):
+    """QP statistics of a TrackResult: iterations per pass, share of passes
+    at the iteration budget, non-finite solutions."""
+    passes = int(tres.sqp_iters.sum())
+    return dict(
+        qp_passes=passes,
+        passes_per_tick_mean=float(tres.sqp_iters.float().mean()),
+        qp_iters_per_pass_mean=float(tres.qp_iters.sum()) / max(passes, 1),
+        qp_iters_per_pass_max=int(tres.qp_iters_max.max()),
+        qp_at_budget_share=float(tres.qp_capped.sum()) / max(passes, 1),
+        qp_nonfinite=int(tres.qp_failed.sum()))
+
+
+def phase_track_reference(device):
+    """4 lanes of figure-eight tracking, 40 ticks: card (fp32, K6) against
+    CPU (fp32, plain twin).  The closed loop contracts, so the two stay
+    together; they differ by the QP tolerance (1e-6 on residuals of size
+    ~1) and by summation order.  Held: states within 2e-3 (m, rad),
+    commands within 2e-2."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.mpc import traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    cfg = MPCConfig()
+    s0 = _f8_starts(4, np.random.default_rng(41))
+    run = lambda dev: rollout.track_trajectory_batched(
+        traj_msg.figure_eight(0.5, dtype=torch.float32, device=dev), s0, cfg,
+        40, device=dev)
+    card = run(device)
+    # the CPU side is thousands of tiny tensor operations, which a thread
+    # pool only slows down
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = run("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    out = dict(lanes=4, ticks=40,
+               max_state_diff=float((card.states.cpu() - cpu.states).abs()
+                                    .max()),
+               max_cmd_diff=float((card.cmds.cpu() - cpu.cmds).abs().max()),
+               mean_err_card=card.mean_err.tolist(),
+               mean_err_cpu=cpu.mean_err.tolist(),
+               qp_iters_card=int(card.qp_iters.sum()),
+               qp_iters_cpu=int(cpu.qp_iters.sum()))
+    log("# track-ref " + json.dumps(out))
+    if not torch.isfinite(card.states).all() \
+            or out["max_state_diff"] > 2e-3 or out["max_cmd_diff"] > 2e-2:
+        raise RuntimeError(f"card tracking disagrees with the CPU: {out}")
+    return out
+
+
+def phase_mpc(device, smi):
+    """The tracking MPC alone at full width: figure_eight(max_vel) shared by
+    256 lanes with perturbed start states, 256 ticks, 3 relinearisations,
+    fp32.  One short warm-up, then the timed and counted run, then a
+    profile of a few ticks."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from uneven_planner_tpu_torch.config import scene_config
+    from uneven_planner_tpu_torch.minco.traj import expand_traj
+    from uneven_planner_tpu_torch.mpc import traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    scfg = scene_config("hill")
+    cfg = scfg.mpc
+    rng = np.random.default_rng(2)
+    f8 = traj_msg.figure_eight(scfg.alm.max_vel, dtype=torch.float32,
+                               device=device)
+    rollout.track_trajectory_batched(f8, _f8_starts(MPC_LANES, rng), cfg, 4)
+    s0 = _f8_starts(MPC_LANES, rng)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tres = rollout.track_trajectory_batched(f8, s0, cfg, MPC_TICKS,
+                                            max_sqp_iter=3)
+    mean_err = tres.mean_err.cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+
+    # a profiled stretch of ticks from a warm controller state
+    lanes = expand_traj(f8, MPC_LANES)
+    s = rollout.roll_init(torch.as_tensor(s0, device=device), cfg)
+    for _ in range(8):
+        s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
+    prof_out = None
+    try:    # a measurement, not a check: its absence fails nothing
+        n_prof = 4
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(n_prof):
+                s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        total, rows = device_time_by_kernel(prof)
+        admm_us = sum(u for u, k, _ in rows if "admm_kernel" in k)
+        prof_out = dict(
+            ticks=n_prof, wall_ms_per_tick=wall / n_prof * 1e3,
+            device_ms_per_tick=total / n_prof / 1e3 if total else None,
+            device_busy_share=(total / 1e6 / wall) if total else None,
+            kernels_per_tick=sum(c for _, _, c in rows) / n_prof,
+            admm_kernel_ms_per_tick=admm_us / n_prof / 1e3,
+            admm_kernel_calls_per_tick=sum(
+                c for _, k, c in rows if "admm_kernel" in k) / n_prof,
+            top=[dict(kernel=k[:80], device_ms_per_tick=u / n_prof / 1e3,
+                      calls_per_tick=c / n_prof) for u, k, c in rows[:8]])
+    except Exception as e:
+        log(f"# mpc profile not measured: {e!r}")
+
+    out = dict(
+        lanes=MPC_LANES, ticks=MPC_TICKS, card=smi,
+        ticks_per_s=MPC_LANES * MPC_TICKS / dt, wall_s=dt,
+        ms_per_tick=dt / MPC_TICKS * 1e3,
+        mean_track_err=float(mean_err.mean()),
+        max_lane_track_err=float(mean_err.max()),
+        final_err_mean=float(tres.errs[:, -1].mean()),
+        **qp_statistics(tres), launches=launches,
+        admm_launches_per_tick=launches["admm_iterations"] / MPC_TICKS,
+        finite=bool(torch.isfinite(tres.states).all()
+                    and torch.isfinite(tres.cmds).all()),
+        states_shape=list(tres.states.shape), profile=prof_out)
+    log("# mpc " + json.dumps(out))
+    fails = []
+    if not out["finite"] or out["states_shape"] != [MPC_LANES, MPC_TICKS, 3]:
+        fails.append("non-finite or misshapen states")
+    if not out["mean_track_err"] <= MAX_TRACK_ERR:
+        fails.append(f"mean tracking error {out['mean_track_err']:.4f} m "
+                     f"exceeds {MAX_TRACK_ERR}")
+    if launches["admm_iterations"] == 0:
+        fails.append("admm_iterations was never launched")
+    if launches["admm_iterations"] != int(tres.sqp_iters.max(0).values.sum()):
+        fails.append("K6 launches != relinearisation passes run")
+    for name in ("gather_rows", "gather_along"):
+        if launches[name] == 0:
+            fails.append(f"{name} was never launched on the tracking path")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
+
+
+def phase_pipeline(device, smi):
+    """The plan -> track path at full width: hill map with both tables, 64
+    scenarios, ProblemShape(10, 20, int_K=8), L-BFGS memory 16 and 250
+    iterations, 500 control ticks, 3 relinearisations, MPCConfig()
+    defaults, fp32.  One fresh batch, timed and counted; then its three
+    stages once more, each alone, for the split of the time."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch import headline, manager
+    from uneven_planner_tpu_torch.frontend import kino_init
+    from uneven_planner_tpu_torch.parallel import pipeline
+    from uneven_planner_tpu_torch.sim import rollout
+    from uneven_planner_tpu_torch.solver import alm
+    cfg, grid = headline.scene_setup(device=device)
+    starts, goals = scen_batch(PIPE_LANES, np.random.default_rng(3))
+    shape = alm.ProblemShape(10, 20, int_K=8)
+    overrides = {"mem_size": 16, "max_iterations": 250}
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    res = pipeline.plan_track_batch(
+        grid, cfg, starts, goals, shape, n_track_steps=PIPE_TICKS,
+        lbfgs_overrides=overrides, max_sqp_iter=3)
+    ok = (res.plan_success & res.alm_converged).cpu().numpy()
+    err = res.mean_track_err.cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    final = res.final_track_err.cpu().numpy()
+
+    # the split: the pipeline's three stages once more, each alone on the
+    # same scenarios through its public function, each ended by a host read
+    to = lambda a: torch.as_tensor(a, device=device)
+    t0 = time.perf_counter()
+    kres = kino_init.plan(grid, cfg.frontend, to(starts), to(goals))
+    same = bool(torch.equal(kres.success, res.plan_success))
+    t1 = time.perf_counter()
+    x0, bound = manager.init_guess_fixed_device(
+        kres.path, kres.path_mask, cfg.manager, shape.piece_xy,
+        shape.piece_yaw)
+    ares = alm.solve_flat(x0, bound, shape, grid, cfg.alm,
+                          lbfgs_overrides=overrides)
+    same = same and bool(torch.equal(ares.converged, res.alm_converged))
+    t2 = time.perf_counter()
+    tres = rollout.track_trajectory_batched(
+        res.traj, starts, cfg.mpc, PIPE_TICKS, max_sqp_iter=3,
+        traj_batched=True)
+    drift = float((tres.mean_err - res.mean_track_err).abs().max())
+    t3 = time.perf_counter()
+    secs = dict(search=t1 - t0, solve=t2 - t1, track=t3 - t2,
+                solver_steps=ares.steps, same_flags_as_the_whole_run=same,
+                max_mean_err_diff_to_the_whole_run=drift)
+    out = dict(
+        scenarios=PIPE_LANES, ticks=PIPE_TICKS, card=smi,
+        scenarios_per_s=PIPE_LANES / dt, wall_s=dt, stage_seconds=secs,
+        track_ms_per_tick=secs["track"] / PIPE_TICKS * 1e3,
+        plan_success_share=float(res.plan_success.float().mean()),
+        alm_converged_share=float(res.alm_converged.float().mean()),
+        planned_and_converged_share=float(ok.mean()),
+        mean_track_err=float(err[ok].mean()) if ok.any() else None,
+        max_track_err=float(err[ok].max()) if ok.any() else None,
+        final_track_err_mean=float(final[ok].mean()) if ok.any() else None,
+        non_hol_mean=float(res.non_hol.cpu().numpy()[ok].mean())
+        if ok.any() else None,
+        at_goal_share_last_tick=float(res.track.at_goal[:, -1].float()
+                                      .mean()),
+        **qp_statistics(res.track), launches=launches,
+        finite=bool(np.isfinite(err).all() and np.isfinite(final).all()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("# pipeline " + json.dumps(out))
+    fails = []
+    if out["planned_and_converged_share"] < 0.95:
+        fails.append("fewer than 95% of scenarios planned and converged")
+    if not same or not drift <= 1e-3:
+        fails.append("the stages run alone do not repeat the whole run")
+    if not out["finite"]:
+        fails.append("non-finite tracking error")
+    if out["mean_track_err"] is None \
+            or not out["mean_track_err"] <= MAX_TRACK_ERR:
+        fails.append(f"mean tracking error of the good lanes "
+                     f"{out['mean_track_err']} exceeds {MAX_TRACK_ERR} m")
+    for name in ("terrain_tv_packed16", "terrain_tv_pair", "gather_rows",
+                 "gather_along", "admm_iterations"):
+        if launches[name] == 0:
+            fails.append(f"{name} was never launched on the pipeline")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
+
 
 def main() -> int:
     try:
@@ -783,35 +1368,65 @@ def main() -> int:
 
     from uneven_planner_tpu_torch import headline
     t_start = time.perf_counter()
+    laps, t_lap = {}, t_start
+
+    def lap(name):
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps[name], t_lap = round(now - t_lap, 1), now
+
     dev, smi = phase_device()
     phase_build()
+    lap("device+build")
     _, grid = headline.scene_setup(device=dev)
     variants = phase_kernels(grid)
     del grid
+    lap("terrain kernels")
     gathers = phase_gather_kernels(dev)
+    lap("gather kernels")
+    tanhs, probe_a = phase_elementwise_kernel(dev)
+    lap("tanh kernel")
+    admms = phase_admm_kernel(dev)
+    lap("admm kernel")
     phase_small_reference(dev)
+    lap("small reference")
     head, ctx = phase_headline(dev, smi)
+    lap("headline")
     try:    # a measurement, not a check: its absence fails nothing
         phase_profile(ctx)
     except Exception as e:
         log(f"# profile not measured: {e!r}")
     del ctx
     phase_plan_reference(dev)
+    lap("plan reference")
     plan, plan_ctx = phase_plan(dev, smi)
+    lap("plan")
     try:
         phase_plan_profile(plan_ctx)
     except Exception as e:
         log(f"# plan-profile not measured: {e!r}")
+    del plan_ctx
+    phase_track_reference(dev)
+    lap("track reference")
+    mpc = phase_mpc(dev, smi)
+    lap("mpc")
+    pipe = phase_pipeline(dev, smi)
+    lap("pipeline")
 
     # each kernel at the shape and mode its main path gives it: K1 hi-only
     # with J (every solver evaluation) and K2 with J (init_scaling) on the
-    # headline path, with their variants on the planning path beside them;
-    # K3 on the occupancy table and K4 on the dedup cells of the planning
-    # path (the other shapes are in the "# kernel" lines above)
+    # headline path, with their variants on the planning path and the
+    # pipeline beside them; K3 on the occupancy table and K4 on the dedup
+    # cells of the planning path, with the shapes of the tracking path (MPC
+    # alone and pipeline) beside them; K5 at the TPU probe's own shape, with the launches of the probe's
+    # own program (it is on no path of the planner in either package); K6 on
+    # the first QP pass of a real tracking tick,
+    # with its launches on the MPC-alone and the pipeline runs (the other
+    # shapes are in the "# kernel" lines above)
     terrain_src = "uneven_planner_tpu_torch/csrc/terrain_lookup.cu"
     gather_src = "uneven_planner_tpu_torch/csrc/gather.cu"
     pick = lambda name, **kw: next(
-        v for v in variants + gathers if v["name"] == name
+        v for v in variants + gathers + tanhs + admms if v["name"] == name
         and all(v[k] == val for k, val in kw.items()))
     terrain_err = lambda v: max(v["max_abs_err_tv"], v["max_abs_err_jac"])
     entries = []
@@ -829,12 +1444,13 @@ def main() -> int:
             tolerance=TOL, ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
             M=v["M"], exact=v["exact"], want_jac=v["want_jac"],
-            planning_path=[dict(
+            **{f"{path}_path": [dict(
                 path=w["path"], M=w["M"], exact=w["exact"],
                 want_jac=w["want_jac"], max_abs_err=terrain_err(w),
                 ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
                 bound_by=w["bound_by"]) for w in variants
-                if w["name"] == name and w["path"].startswith("planning")]))
+                if w["name"] == name and w["path"].startswith(path)]
+               for path in ("planning", "pipeline")}))
     for name, replaces, shape in [
             ("gather_rows", "experiments/e1_gather.py:94",
              "path occupancy: [40000] bool"),
@@ -846,8 +1462,59 @@ def main() -> int:
             launches=plan["launches"][name], max_abs_err=v["max_abs_err"],
             tolerance=TOL_GATHER, ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"],
-            library_ms=v["library_ms"], shape=shape, ms_cold=v["ms_cold"]))
-    log(f"# total {time.perf_counter() - t_start:.1f} s")
+            library_ms=v["library_ms"], shape=shape, ms_cold=v["ms_cold"],
+            launches_mpc=mpc["launches"][name],
+            tracking_and_pipeline_paths=[dict(
+                shape=w["shape"], equal=w["equal"],
+                max_abs_err=w["max_abs_err"], ms=w["ms"],
+                plain_ms=w["plain_ms"], library_ms=w["library_ms"],
+                bound_ms=w["bound_ms"], bound_by=w["bound_by"])
+                for w in gathers if w["name"] == name
+                and w["shape"].startswith(("mpc", "pipeline"))]))
+    v, big = tanhs
+    entries.append(dict(
+        name="tanh_affine", route="cuda",
+        source="uneven_planner_tpu_torch/csrc/elementwise.cu",
+        replaces="experiments/e31_pallas.py:39",
+        launches=probe_a["launches"],
+        path="the probe's own program (ones [256, 512] -> kernel -> numpy "
+        "check); the kernel is on no path of the planner",
+        max_abs_err=v["max_abs_err"],
+        max_ulp_tanh=v["max_ulp_tanh"],
+        tolerance=dict(ulp_tanh=TOL_TANH_ULP, abs=TOL_TANH_ABS), ms=v["ms"],
+        plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+        bound_by=v["bound_by"], library_ms=v["library_ms"],
+        library=v["library"], shape=v["shape"],
+        large=dict(shape=big["shape"], max_abs_err=big["max_abs_err"],
+                   ms=big["ms"], plain_ms=big["plain_ms"],
+                   bound_ms=big["bound_ms"], bound_by=big["bound_by"])))
+    v = admms[0]
+    entries.append(dict(
+        name="admm_iterations", route="cuda",
+        source="uneven_planner_tpu_torch/csrc/admm_qp.cu",
+        replaces="uneven_planner_tpu/solver/admm_qp.py:295",
+        launches=mpc["launches"]["admm_iterations"],
+        launches_pipeline=pipe["launches"]["admm_iterations"],
+        max_abs_err=v["max_abs_err"], fixed_count=v["fixed_count"],
+        loose_test=v["loose_test"], path_test=v["path_test"],
+        tolerance=dict(rel_fixed_count=TOL_ADMM_REL,
+                       rel_stopped=TOL_ADMM_REL_STOPPED,
+                       loose_eps=ADMM_LOOSE_EPS,
+                       iters_equal_share_loose=MIN_EQUAL_ITERS_SHARE,
+                       iters_max_diff_loose=MAX_ITERS_DIFF),
+        ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+        bound_by=v["bound_by"],
+        bound_ms_at_occupancy=v["bound_ms_at_occupancy"], library_ms=None,
+        shape=v["shape"],
+        other_shapes=[dict(shape=w["shape"], ms=w["ms"],
+                           plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                           fixed_count=w["fixed_count"],
+                           loose_test=w["loose_test"])
+                      for w in admms[1:]]))
+    for e in entries[:4]:
+        e["launches_pipeline"] = pipe["launches"][e["name"]]
+    log(f"# total {time.perf_counter() - t_start:.1f} s, by phase (the "
+        f"profiles count with the phase after them): {json.dumps(laps)}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

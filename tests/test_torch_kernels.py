@@ -117,7 +117,7 @@ def _indices(rng, n, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.uint8,
                                    torch.bool])
-@pytest.mark.parametrize("width", [None, 1, 3, 4, 8, 12, 128])
+@pytest.mark.parametrize("width", [None, 1, 3, 4, 6, 8, 12, 128])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_gather_rows_kernel_matches_twin_on_card(card, dtype, width,
                                                  idx_dtype):
@@ -197,3 +197,226 @@ def test_search_on_card_launches_the_gather_kernels(cuda_grid):
         p = kino_init.extract_path(res, lane)
         np.testing.assert_allclose(p[-1], goal[lane].cpu().numpy(),
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K5 tanh_affine (csrc/elementwise.cu)
+# ---------------------------------------------------------------------------
+
+def _ulp_distance(a, b):
+    """Distance in units of the last place between two float32 tensors."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    key = lambda i: torch.where(i < 0, -(i & 0x7fffffff), i)
+    return (key(ia) - key(ib)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512), (1,), (7, 13), (1023,),
+                                   (3, 5, 9, 4)])
+def test_tanh_affine_kernel_matches_twin_on_card(card, shape):
+    from uneven_planner_tpu_torch.kernels import elementwise
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(size=shape) * 3.0, dtype=torch.float32,
+                     device=card)
+    x.view(-1)[:1] = 0.0
+    before = elementwise.launches["tanh_affine"]
+    got = elementwise.tanh_affine(x, 2.0, 1.0)
+    torch.cuda.synchronize()
+    assert elementwise.launches["tanh_affine"] == before + 1
+    want = elementwise.tanh_affine_twin(x, 2.0, 1.0)
+    # tanhf and torch.tanh need not round alike: 2 ulp of tanh itself (the
+    # affine part cancels near tanh(x) = -1/2, so there the result is held
+    # absolutely), and numpy's tanh as the TPU probe holds it
+    pure = elementwise.tanh_affine(x, 1.0, 0.0)
+    assert int(_ulp_distance(pure, torch.tanh(x)).max()) <= 2
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-7)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               np.tanh(x.cpu().numpy().astype(np.float64))
+                               * 2.0 + 1.0, rtol=0, atol=5e-7)
+    # an unaligned view takes the scalar path
+    if x.numel() > 4:
+        flat = x.reshape(-1)[1:].clone()
+        odd = torch.empty(flat.numel() + 1, device=card)[1:]
+        odd.copy_(flat)
+        torch.testing.assert_close(
+            elementwise.tanh_affine(odd, 0.5, -1.0),
+            elementwise.tanh_affine_twin(odd, 0.5, -1.0), rtol=0, atol=5e-7)
+    with pytest.raises(TypeError):
+        elementwise.tanh_affine(x.double())
+    if x.dim() == 2:
+        with pytest.raises(ValueError):
+            elementwise.tanh_affine(x.t())
+
+
+# ---------------------------------------------------------------------------
+# K6 admm_iterations (csrc/admm_qp.cu)
+# ---------------------------------------------------------------------------
+
+def _admm_case(B, n, m, seed, device, dtype=torch.float32):
+    """Random SPD box QPs with their factorization, unit scalings."""
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.solver import admm_qp
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(B, n, n))
+    P = L @ L.transpose(0, 2, 1) + n * np.eye(n)
+    q = rng.normal(size=(B, n)) * 3
+    A = rng.normal(size=(B, m, n))
+    l = -np.abs(rng.normal(size=(B, m))) - 0.1
+    u = np.abs(rng.normal(size=(B, m))) + 0.1
+    to = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    P, q, A, l, u = map(to, (P, q, A, l, u))
+    rho = torch.full((B, m), 0.1, dtype=dtype, device=device)
+    M = P + 1e-6 * torch.eye(n, dtype=dtype, device=device) \
+        + (A.transpose(1, 2) * rho[:, None, :]) @ A
+    ones = lambda *s: torch.ones(s, dtype=dtype, device=device)
+    d = admm.ADMMData(P, q, A, l, u, rho,
+                      admm_qp._spd_inverse(M).contiguous(),
+                      ones(B, n) * 1.25, ones(B, m) * 0.8, ones(B) * 1.5)
+    x = torch.zeros((B, n), dtype=dtype, device=device)
+    z = torch.zeros((B, m), dtype=dtype, device=device)
+    return d, admm.initial_state(x, z, z.clone())
+
+
+ADMM_KW = dict(sigma=1e-6, alpha=1.6, eps_abs=1e-4, eps_rel=1e-4,
+               max_iter=300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(8, 12), (60, 118), (33, 7), (1, 1),
+                                 (100, 198)])
+def test_admm_kernel_matches_twin_on_card(card, n, m):
+    """x, y within 1e-4 relative of the twin on the same CUDA tensors (the
+    two sum in different orders), iteration counts within one, including a
+    lane that converges at its first iteration, one that never converges
+    and one with a NaN inverse."""
+    from uneven_planner_tpu_torch.kernels import admm
+    B = 6
+    d, s = _admm_case(B, n, m, seed=n + m, device=card)
+    # lane 0: unconstrained and started at its optimum -> done at it = 1
+    d.l[0], d.u[0] = -1e6, 1e6
+    x_opt = torch.linalg.solve(d.P[0].double(), -d.q[0].double()).float()
+    s.x[0] = x_opt
+    s.z[0] = d.A[0] @ x_opt
+    # lane 1: infeasible (l > u on no row, but two rows contradict) ->
+    # never converges
+    if m >= 2:
+        d.A[1, 1] = d.A[1, 0]
+        d.l[1, 0], d.u[1, 0] = 1.0, 1.0
+        d.l[1, 1], d.u[1, 1] = -1.0, -1.0
+    # lane 2: failed factorization
+    d.minv[2] = float("nan")
+    before = admm.launches["admm_iterations"]
+    got = admm.admm_iterations(d, s, n_iters=400, **ADMM_KW)
+    torch.cuda.synchronize()
+    assert admm.launches["admm_iterations"] == before + 1
+    want = admm.admm_iterations_twin(d, s, n_iters=400, **ADMM_KW)
+    assert got.done.all() and want.done.all()
+    assert int(got.it[0]) == 1 == int(want.it[0])
+    assert int(got.it[2]) == 300 and got.x[2].isnan().all()
+    if m >= 2:
+        assert int(got.it[1]) == 300 == int(want.it[1])
+    assert (got.it - want.it).abs().max() <= 1, (got.it, want.it)
+    ok = [b for b in range(B) if b not in (1, 2)]
+    for a, b in ((got.x, want.x), (got.y, want.y), (got.z, want.z)):
+        scale = b[ok].abs().amax(-1, keepdim=True).clamp(min=1.0)
+        assert ((a[ok] - b[ok]).abs() / scale).max() < 1e-4
+    torch.testing.assert_close(got.r_prim[ok], want.r_prim[ok], rtol=1e-2,
+                               atol=1e-5)
+    # the inputs are left as they were
+    assert int(s.it.max()) == 0 and not s.done.any()
+
+
+@pytest.mark.cuda
+def test_admm_kernel_is_resumable_bit_for_bit_on_card(card):
+    from uneven_planner_tpu_torch.kernels import admm
+    d, s = _admm_case(16, 60, 118, seed=3, device=card)
+    kw = dict(ADMM_KW, eps_abs=1e-7, eps_rel=1e-7, max_iter=2000)
+    whole = admm.admm_iterations(d, s, n_iters=400, **kw)
+    part = admm.admm_iterations(d, s, n_iters=25, **kw)
+    assert int(part.it.max()) == 25
+    part = admm.admm_iterations(d, part, n_iters=375, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, part):
+        assert torch.equal(a, b)
+    # n_iters = 0 and a finished state pass through unchanged
+    same = admm.admm_iterations(d, whole, n_iters=0, **kw)
+    done = whole._replace(done=torch.ones_like(whole.done))
+    frozen = admm.admm_iterations(d, done, n_iters=50, **kw)
+    for a, b, c in zip(whole, same, frozen[:-1] + (whole.done,)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_admm_kernel_rejects_what_it_does_not_take_on_card(card):
+    from uneven_planner_tpu_torch.kernels import admm
+    d, s = _admm_case(2, 8, 12, seed=0, device=card)
+    with pytest.raises(TypeError):
+        admm.admm_iterations(
+            admm.ADMMData(*[a.double() for a in d]), s, n_iters=1, **ADMM_KW)
+    with pytest.raises(ValueError):
+        admm.admm_iterations(d._replace(A=d.A.transpose(1, 2)), s, n_iters=1,
+                             **ADMM_KW)
+    with pytest.raises(ValueError):
+        admm.admm_iterations(d, s._replace(x=s.x.cpu()), n_iters=1,
+                             **ADMM_KW)
+    # the full tracking QP (n = 150, m = 268) does not fit in shared memory
+    assert admm.shared_bytes(150, 268) > admm.MAX_SHARED_BYTES
+    assert admm.shared_bytes(60, 118) == 64368
+    assert int(admm.LIBRARY.load().admm_shared_bytes(60, 118)) == 64368
+    big, sb = _admm_case(1, 150, 268, seed=1, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        admm.admm_iterations(big, sb, n_iters=1, **ADMM_KW)
+
+
+@pytest.mark.cuda
+def test_solve_qp_on_card_goes_through_the_kernel(card):
+    """`solve_qp` on CUDA tensors launches K6 (once with a fixed rho, once
+    per interval with adaptive rho) and lands on the f64 CPU solution."""
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.solver import admm_qp
+    d, _ = _admm_case(8, 20, 30, seed=5, device=card)
+    qp = (d.P, d.q, d.A, d.l, d.u)
+    kw = dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=2000, polish=False)
+    ref = admm_qp.solve_qp(*[a.double().cpu() for a in qp],
+                           adaptive_rho=False, **dict(kw, eps_abs=1e-10,
+                                                      eps_rel=1e-10))
+    before = admm.launches["admm_iterations"]
+    got = admm_qp.solve_qp(*qp, adaptive_rho=False, fixed_iters=400, **kw)
+    assert admm.launches["admm_iterations"] == before + 1
+    assert (got.x.double().cpu() - ref.x).abs().max() < 1e-3
+    stat, prim, comp = admm_qp.kkt_residuals(
+        *[a.double().cpu() for a in qp], got.x.double().cpu(),
+        got.y.double().cpu())
+    assert float(stat.max()) < 1e-3 and float(prim.max()) < 1e-4
+    before = admm.launches["admm_iterations"]
+    ada = admm_qp.solve_qp(*qp, adaptive_rho=True, adaptive_rho_interval=25,
+                           **kw)
+    n_launch = admm.launches["admm_iterations"] - before
+    assert n_launch >= 1 and n_launch == -(-int(ada.iters.max()) // 25)
+    assert (ada.x.double().cpu() - ref.x).abs().max() < 1e-3
+    with pytest.raises(TypeError):
+        admm_qp.solve_qp(*[a.double() for a in qp], adaptive_rho=False,
+                         polish=False)
+
+
+@pytest.mark.cuda
+def test_tracking_on_card_launches_the_admm_kernel(card):
+    """A short figure-eight rollout on the card goes through K6 (one launch
+    per relinearization pass), K3 and K4, and tracks."""
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.kernels import admm, gather
+    from uneven_planner_tpu_torch.mpc import traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    f8 = traj_msg.figure_eight(0.5, dtype=torch.float32)
+    s0 = np.zeros((4, 3), np.float32)
+    s0[:, 0] = [0.02, -0.03, 0.0, 0.04]
+    s0[:, 2] = np.pi / 4
+    before = admm.launches["admm_iterations"], dict(gather.launches)
+    res = rollout.track_trajectory_batched(f8, s0, MPCConfig(), 10)
+    passes = int(res.sqp_iters.max(0).values.sum())
+    assert admm.launches["admm_iterations"] - before[0] == passes
+    assert gather.launches["gather_rows"] > before[1]["gather_rows"]
+    assert gather.launches["gather_along"] > before[1]["gather_along"]
+    assert res.states.is_cuda and torch.isfinite(res.states).all()
+    assert not res.qp_failed.any() and float(res.mean_err.max()) < 0.06

@@ -1,5 +1,7 @@
-"""Port parity: uniform-MINCO constant operators (bit-identical) and the
-batched MINCO functions plus the tau <-> T maps (f64, within 1e-12)."""
+"""Port parity: uniform-MINCO constant operators (bit-identical), the
+batched MINCO functions plus the tau <-> T maps (f64, within 1e-12), and the
+general MINCO solve (block-tridiagonal Thomas recursion, `generate`,
+`jerk_cost` and its gradient through autograd; f64, within 1e-9)."""
 
 import jax
 import jax.numpy as jnp
@@ -7,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from uneven_planner_tpu.minco import banded as jbanded
+from uneven_planner_tpu.minco import minco as jminco
 from uneven_planner_tpu.minco import uniform as ju
 from uneven_planner_tpu.solver import alm as jalm
+from uneven_planner_tpu_torch.minco import banded, minco
 from uneven_planner_tpu_torch.minco import uniform as tu
 from uneven_planner_tpu_torch.solver import alm as talm
 
@@ -84,3 +89,139 @@ def test_expc2_logc2_pack_unpack_match_jax():
     np.testing.assert_array_equal(pxy.numpy(), np.asarray(jxy))
     np.testing.assert_array_equal(pyaw.numpy(), np.asarray(jyaw))
     np.testing.assert_array_equal(talm.pack(tau, pxy, pyaw).numpy(), x)
+
+
+# ---------------------------------------------------------------------------
+# general MINCO: banded solve, generate, jerk cost and its gradient
+# ---------------------------------------------------------------------------
+
+def _random_blocks(rng, B, N, k, m):
+    L = rng.normal(size=(B, N, k, k)) * 0.1
+    U = rng.normal(size=(B, N, k, k)) * 0.1
+    D = rng.normal(size=(B, N, k, k)) * 0.1 + np.eye(k) * 3.0
+    return L, D, U, rng.normal(size=(B, N, k, m))
+
+
+@pytest.mark.parametrize("N,k,m", [(7, 6, 2), (2, 6, 1), (5, 3, 4)])
+def test_block_tridiag_solve_matches_jax_and_dense(N, k, m):
+    rng = np.random.default_rng(N)
+    B = 3
+    L, D, U, b = _random_blocks(rng, B, N, k, m)
+    got = banded.block_tridiag_solve(*map(torch.tensor, (L, D, U, b)))
+    for i in range(B):
+        want = jbanded.block_tridiag_solve(*(jnp.asarray(a[i])
+                                             for a in (L, D, U, b)))
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want),
+                                   rtol=1e-9, atol=1e-9)
+        A = np.zeros((N * k, N * k))
+        for j in range(N):
+            A[j*k:(j+1)*k, j*k:(j+1)*k] = D[i, j]
+            if j > 0:
+                A[j*k:(j+1)*k, (j-1)*k:j*k] = L[i, j]
+            if j < N - 1:
+                A[j*k:(j+1)*k, (j+1)*k:(j+2)*k] = U[i, j]
+        np.testing.assert_allclose(got[i].numpy().reshape(-1, m),
+                                   np.linalg.solve(A, b[i].reshape(-1, m)),
+                                   rtol=1e-9, atol=1e-10)
+    # matvec consistency, and one system without the lane dimension
+    Ax = banded.block_tridiag_matvec(*map(torch.tensor, (L, D, U)), got)
+    np.testing.assert_allclose(Ax.numpy(), b, rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(
+        banded.block_tridiag_matvec(*(torch.tensor(a[0]) for a in (L, D, U)),
+                                    got[0]).numpy(),
+        np.asarray(jbanded.block_tridiag_matvec(
+            *(jnp.asarray(a[0]) for a in (L, D, U)),
+            jnp.asarray(got[0].numpy()))), atol=1e-12)
+    one = banded.block_tridiag_solve(*(torch.tensor(a[0])
+                                       for a in (L, D, U, b)))
+    np.testing.assert_allclose(one.numpy(), got[0].numpy(), atol=1e-12)
+
+
+def test_gauss_solve_matches_jax():
+    rng = np.random.default_rng(0)
+    M = rng.normal(size=(4, 6, 6)) * 0.2 + np.eye(6) * 2.0
+    Bm = rng.normal(size=(4, 6, 3))
+    got = banded.gauss_solve(torch.tensor(M), torch.tensor(Bm))
+    for i in range(4):
+        np.testing.assert_allclose(
+            got[i].numpy(), np.asarray(jbanded.gauss_solve(
+                jnp.asarray(M[i]), jnp.asarray(Bm[i]))), rtol=1e-12,
+            atol=1e-12)
+    np.testing.assert_allclose(M @ got.numpy(), Bm, atol=1e-10)
+
+
+def _minco_problem(B, N, dim, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, N - 1, dim)),
+            rng.uniform(0.5, 1.5, size=(B, N)),
+            rng.normal(size=(B, 3, dim)), rng.normal(size=(B, 3, dim)))
+
+
+@pytest.mark.parametrize("N,dim", [(8, 2), (2, 1), (16, 1)])
+def test_generate_and_eval_piece_match_jax(N, dim):
+    B = 3
+    inner, ts, head, tail = _minco_problem(B, N, dim, seed=N)
+    c = minco.generate(*map(torch.tensor, (inner, ts, head, tail)))
+    assert c.shape == (B, N, 6, dim)
+    for b in range(B):
+        want = jminco.generate(*(jnp.asarray(a[b])
+                                 for a in (inner, ts, head, tail)))
+        np.testing.assert_allclose(c[b].numpy(), np.asarray(want),
+                                   rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(
+            float(minco.jerk_cost(c, torch.tensor(ts))[b]),
+            float(jminco.jerk_cost(want, jnp.asarray(ts[b]))), rtol=1e-9)
+        for i in (0, N - 1):
+            s = 0.37 * ts[b, i]
+            got = minco.eval_piece(c[b, i], torch.tensor(s))
+            for g, w in zip(got, jminco.eval_piece(want[i], jnp.asarray(s))):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=1e-9, atol=1e-9)
+    # the defining conditions: boundary PVA and the inner waypoints
+    p0, v0, a0, _ = minco.eval_piece(c[:, 0], torch.zeros(B).double())
+    np.testing.assert_allclose(torch.stack([p0, v0, a0], 1).numpy(), head,
+                               atol=1e-9)
+    ends = minco.eval_piece(c[:, :-1], torch.tensor(ts[:, :-1]))[0]
+    np.testing.assert_allclose(ends.numpy(), inner, atol=1e-8)
+    with pytest.raises(ValueError):
+        minco.generate(torch.zeros(1, 0, 2), torch.ones(1, 1),
+                       torch.zeros(1, 3, 2), torch.zeros(1, 3, 2))
+
+
+def test_jerk_cost_gradient_through_generate_matches_jax_grad():
+    """Autograd through the Thomas recursion against `jax.grad` of the same
+    chain, with respect to inner points and piece times (1e-9 relative to
+    the gradient's size)."""
+    B, N = 3, 8
+    inner, ts, head, tail = _minco_problem(B, N, 2, seed=1)
+    ti = torch.tensor(inner, requires_grad=True)
+    tt = torch.tensor(ts, requires_grad=True)
+    cost = minco.jerk_cost(minco.generate(ti, tt, torch.tensor(head),
+                                          torch.tensor(tail)), tt)
+    cost.sum().backward()
+    for b in range(B):
+        gi, gt = jax.grad(lambda i, s: jminco.jerk_cost(jminco.generate(
+            i, s, jnp.asarray(head[b]), jnp.asarray(tail[b])), s),
+            argnums=(0, 1))(jnp.asarray(inner[b]), jnp.asarray(ts[b]))
+        for got, want in ((ti.grad[b], gi), (tt.grad[b], gt)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
+                                       atol=1e-9 * np.abs(want).max())
+
+
+def test_generate_se2_and_jerk_cost_se2_match_jax():
+    ixy, txy, hxy, lxy = _minco_problem(2, 5, 2, seed=3)
+    iyaw, tyaw, hyaw, lyaw = _minco_problem(2, 10, 1, seed=4)
+    args = (ixy, txy, hxy, lxy, iyaw, tyaw, hyaw, lyaw)
+    c_xy, c_yaw = minco.generate_se2(*map(torch.tensor, args))
+    cost = minco.jerk_cost_se2(c_xy, torch.tensor(txy), c_yaw,
+                               torch.tensor(tyaw))
+    for b in range(2):
+        wxy, wyaw = jminco.generate_se2(*(jnp.asarray(a[b]) for a in args))
+        np.testing.assert_allclose(c_xy[b].numpy(), np.asarray(wxy),
+                                   rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(c_yaw[b].numpy(), np.asarray(wyaw),
+                                   rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(float(cost[b]), float(jminco.jerk_cost_se2(
+            wxy, jnp.asarray(txy[b]), wyaw, jnp.asarray(tyaw[b]))),
+            rtol=1e-9)

@@ -1,10 +1,11 @@
 """uneven_planner_tpu_torch — the PyTorch/CUDA port of uneven_planner_tpu.
 
-Same layout as the JAX package (`terrain/`, `minco/`, `solver/`), written in
-PyTorch's idiom: plain functions on `[B, ...]` tensors with the lane batch
-written out, an explicit device, and hand-written CUDA kernels for Hopper
-(`csrc/`) behind `torch.autograd.Function`s.  The package imports torch and
-numpy only; it never imports JAX or the JAX package.
+Same layout as the JAX package (`terrain/`, `minco/`, `solver/`, `frontend/`,
+`mpc/`, `sim/`, `parallel/`), written in PyTorch's idiom: plain functions on
+`[B, ...]` tensors with the lane batch written out, an explicit device, and
+hand-written CUDA kernels for Hopper (`csrc/`) behind wrappers in `kernels/`
+(and `torch.autograd.Function`s where a gradient is needed).  The package
+imports torch and numpy only; it never imports JAX or the JAX package.
 
 Entry points take `device=None`, which means CUDA, and raise when CUDA is
 absent.  Pass `device="cpu"` to run the plain PyTorch versions of the

@@ -2,8 +2,7 @@
 `config.py`, limited to what the ported slice reads).
 
 Field names and defaults mirror the reference YAML (run_hill.yaml and
-siblings), exactly as in `uneven_planner_tpu/config.py`.  The MPC config
-joins when that module is ported.
+siblings), exactly as in `uneven_planner_tpu/config.py`.
 """
 
 from __future__ import annotations
@@ -132,6 +131,64 @@ class ManagerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MPCConfig:
+    """Tracking-MPC parameters (run_hill.yaml:64-83, mpc.cpp:7-32)."""
+
+    du_threshold: float = 0.001
+    dt: float = 0.02
+    max_iter: int = 150
+    predict_steps: int = 30
+    delay_num: int = 0
+    max_omega: float = 24.0
+    max_domega: float = 10.0
+    max_speed: float = 0.8
+    min_speed: float = -0.8
+    max_accel: float = 10.0
+    matrix_q: Tuple[float, float, float] = (100.0, 100.0, 2.0)
+    matrix_r: Tuple[float, float] = (0.01, 0.01)
+    matrix_rd: Tuple[float, float] = (0.01, 100.0)
+    max_steer: float = 0.505
+    max_dsteer: float = 1.5
+    wheel_base: float = 0.26
+    model_type: int = 2  # 0=OMINI, 1=DIFF, 2=ACKER
+    # ADMM QP solver settings (OSQP-equivalent; mpc.cpp:517-521 uses
+    # tol 1e-6, warm start, 30000 iter cap; the batched solver uses a fixed
+    # iteration budget with the same tolerances).
+    qp_abs_tol: float = 1.0e-6
+    qp_rel_tol: float = 1.0e-6
+    qp_max_iter: int = 2000
+    qp_rho: float = 0.1
+    qp_sigma: float = 1.0e-6
+    qp_alpha: float = 1.6
+    # Active-set polish after ADMM convergence; off for the 100 Hz tick, as
+    # the reference's OSQP run leaves it.
+    qp_polish: bool = False
+    # ADMM iteration budget of one QP solve inside the tracking loop
+    # (`solver.admm_qp.solve_qp(fixed_iters=...)`): lanes stop early at the
+    # tolerances, none runs longer.
+    qp_scan_iters: int = 400
+    # Condense the QP to inputs only (exact: the reference QP has no state
+    # bounds, mpc.cpp:387-511): n drops from 5H to 2H at the same optimum.
+    qp_condense: bool = True
+    # In-loop adaptive rho (OSQP 5.2) refactorizes inside the ADMM loop; the
+    # tracking QPs are equilibrated and warm-started, where a fixed rho with
+    # the equality boost converges within the budget.
+    qp_adaptive_rho: bool = False
+
+    @property
+    def max_comega(self) -> float:
+        return self.max_domega * self.dt
+
+    @property
+    def max_csteer(self) -> float:
+        return self.max_dsteer * self.dt
+
+    @property
+    def max_cv(self) -> float:
+        return self.max_accel * self.dt
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneConfig:
     name: str = "hill"
     map: MapConfig = dataclasses.field(default_factory=MapConfig)
@@ -139,6 +196,7 @@ class SceneConfig:
         default_factory=FrontendConfig)
     alm: ALMConfig = dataclasses.field(default_factory=ALMConfig)
     manager: ManagerConfig = dataclasses.field(default_factory=ManagerConfig)
+    mpc: MPCConfig = dataclasses.field(default_factory=MPCConfig)
 
 
 def scene_config(name: str) -> SceneConfig:

@@ -6,9 +6,10 @@ and the solver state (boundaries, duals, scalings).  The JAX package keeps
 the tables channel-major ([8, Ncells] f32 pair table, [6, 2*Ncells] f32
 words of the f16 table); the port keeps them row-major with 32-byte rows,
 so conversion is a transpose (and an 8-word pad for the f16 table) with
-the bits unchanged.  Front-end paths, search results and trajectories keep
-their layout; the port's carry a leading scenario dimension, which a single
-(un-vmapped) JAX result gets here.
+the bits unchanged.  Front-end paths, search results, trajectories, wire
+messages, QP data and solutions, the rollout carry and the tracking and
+pipeline results keep their layout; the port's carry a leading scenario
+dimension, which a single (un-vmapped) JAX result gets here.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ import torch
 from uneven_planner_tpu_torch import resolve_device
 from uneven_planner_tpu_torch.frontend.kino_init import KinoResult
 from uneven_planner_tpu_torch.minco.traj import SE2Traj
+from uneven_planner_tpu_torch.mpc.traj_msg import SE2TrajMsg
+from uneven_planner_tpu_torch.parallel.pipeline import PipelineResult
+from uneven_planner_tpu_torch.sim.rollout import RollState, TrackResult
+from uneven_planner_tpu_torch.solver.admm_qp import QPSolution
 from uneven_planner_tpu_torch.solver.alm import Boundary, DualState, Scaling
 from uneven_planner_tpu_torch.terrain import grid as tgrid
 
@@ -113,3 +118,59 @@ def traj_from_numpy(traj, device=None) -> SE2Traj:
                    ts_xy=_lanes(traj.ts_xy, 2, dev),
                    c_yaw=_lanes(traj.c_yaw, 4, dev),
                    ts_yaw=_lanes(traj.ts_yaw, 2, dev))
+
+
+def _fields(cls, obj, ndims, device):
+    """`cls` from the same-named fields of `obj`, each given its lane
+    dimension; fields `obj` lacks (or holds as None) stay None."""
+    get = lambda f: getattr(obj, f, None)
+    return cls(**{f: None if get(f) is None else _lanes(get(f), nd, device)
+                  for f, nd in ndims.items()})
+
+
+def traj_msg_from_numpy(msg, device=None) -> SE2TrajMsg:
+    """The JAX package's SE2TrajMsg (single or vmapped) -> the port's."""
+    dev = resolve_device(device)
+    return _fields(SE2TrajMsg, msg, dict(
+        pos_pts=3, pos_ts=2, angle_pts=3, angle_ts=2, init_v=2, init_a=2),
+        dev)
+
+
+def qp_from_numpy(P, q, A, l, u, device=None):
+    """QP data (P [n, n], q [n], A [m, n], l, u [m]; single or with a
+    leading lane dimension) -> the port's batched (P, q, A, l, u)."""
+    dev = resolve_device(device)
+    return tuple(_lanes(a, nd, dev)
+                 for a, nd in ((P, 3), (q, 2), (A, 3), (l, 2), (u, 2)))
+
+
+def qp_solution_from_numpy(sol, device=None) -> QPSolution:
+    dev = resolve_device(device)
+    return _fields(QPSolution, sol, dict(
+        x=2, y=2, iters=1, r_prim=1, r_dual=1, converged=1), dev)
+
+
+def roll_state_from_numpy(carry, device=None) -> RollState:
+    """The rollout carry (state, act, output, buff, t) of the JAX package's
+    tracking loop -> the port's."""
+    dev = resolve_device(device)
+    return _fields(RollState, carry, dict(
+        state=2, act=2, output=3, buff=3, t=1), dev)
+
+
+def track_result_from_numpy(res, device=None) -> TrackResult:
+    dev = resolve_device(device)
+    return _fields(TrackResult, res, dict(
+        states=3, cmds=3, errs=2, at_goal=2, mean_err=1, qp_iters=2,
+        qp_iters_max=2, sqp_iters=2, qp_capped=2, qp_failed=2), dev)
+
+
+def pipeline_result_from_numpy(res, device=None) -> PipelineResult:
+    dev = resolve_device(device)
+    out = _fields(PipelineResult, res, dict(
+        plan_success=1, alm_converged=1, outer_iters=1, inner_iters=1,
+        non_hol=1, mean_track_err=1, final_track_err=1, res_h=1, res_g=1),
+        dev)
+    traj = getattr(res, "traj", None)
+    return out._replace(
+        traj=None if traj is None else traj_from_numpy(traj, dev))

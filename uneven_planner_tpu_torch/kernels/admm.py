@@ -1,0 +1,226 @@
+"""K6 `admm_iterations` (`csrc/admm_qp.cu`): the iteration loop of the
+batched ADMM QP solver, with its plain PyTorch twin and launch counter.
+
+    admm_iterations(data, state, sigma=, alpha=, eps_abs=, eps_rel=,
+                    max_iter=, n_iters=) -> state
+
+runs, for every lane (one QP) that is not done, at most `n_iters` further
+iterations of the loop body of the JAX package's `solve_qp`
+(`solver/admm_qp.py:295-348`, adaptive rho off) and freezes a lane once its
+termination test holds or its count reaches `max_iter`.  The kernel is one
+thread block per lane with the loop inside; the twin is the same arithmetic
+as batched tensor operations with a `done` mask.  The wrapper runs the twin
+only for tensors that lie on the CPU; for CUDA tensors it launches the
+kernel on PyTorch's current stream or raises, and never falls back.  The
+kernel is float32 only; float64 exists on the CPU path.  It keeps the lane's
+P, A and inverse in shared memory, so it serves shapes up to
+`shared_bytes(n, m) <= MAX_SHARED_BYTES` (the condensed tracking QP, n = 60,
+m = 118, takes 64,368 bytes; the largest condensed shape is n = 116,
+m = 230; the full QP, n = 150, m = 268, does not fit and is refused).  No
+gradient: nothing differentiates through the QP.
+
+`launches` counts kernel launches by name; only the wrapper adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from uneven_planner_tpu_torch.kernels.build import CudaLibrary
+
+launches = {"admm_iterations": 0}
+
+# bytes of shared memory one thread block can have on sm_90
+MAX_SHARED_BYTES = 232448
+_WARPS = 8
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+class ADMMData(NamedTuple):
+    """One scaled QP per lane and what undoes the scaling."""
+    P: torch.Tensor        # [B, n, n]
+    q: torch.Tensor        # [B, n]
+    A: torch.Tensor        # [B, m, n]
+    l: torch.Tensor        # [B, m]
+    u: torch.Tensor        # [B, m]
+    rho_vec: torch.Tensor  # [B, m]
+    minv: torch.Tensor     # [B, n, n] inverse of P + sigma I + A' diag(rho) A
+    Dinv: torch.Tensor     # [B, n]
+    Einv: torch.Tensor     # [B, m]
+    cinv: torch.Tensor     # [B]
+
+
+class ADMMState(NamedTuple):
+    x: torch.Tensor          # [B, n]
+    z: torch.Tensor          # [B, m]
+    y: torch.Tensor          # [B, m]
+    it: torch.Tensor         # [B] int32
+    r_prim: torch.Tensor     # [B] residuals of the last iteration
+    r_dual: torch.Tensor
+    prim_norm: torch.Tensor  # [B] the norms its tolerances scale with
+    dual_norm: torch.Tensor
+    done: torch.Tensor       # [B] bool
+
+
+def initial_state(x, z, y) -> ADMMState:
+    B = x.shape[0]
+    inf = x.new_full((B,), float("inf"))
+    zero = x.new_zeros((B,))
+    return ADMMState(x=x, z=z, y=y,
+                     it=torch.zeros((B,), dtype=torch.int32, device=x.device),
+                     r_prim=inf, r_dual=inf.clone(), prim_norm=zero,
+                     dual_norm=zero.clone(),
+                     done=torch.zeros((B,), dtype=torch.bool,
+                                      device=x.device))
+
+
+def shared_bytes(n: int, m: int) -> int:
+    """Shared memory a lane of an (n, m) QP takes in the kernel: the three
+    matrices at an odd row stride, 8 n-vectors, 9 m-vectors and the
+    reduction scratch (`shared_words` of `csrc/admm_qp.cu`)."""
+    ld = n | 1
+    return 4 * (2 * n * ld + m * ld + 8 * n + 9 * m + 4 * _WARPS)
+
+
+def _declare(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.admm_iterations.argtypes = [p] * 28 + [i, i, i, f, f, f, f, f, i, i,
+                                               p]
+    lib.admm_iterations.restype = i
+    lib.admm_shared_bytes.argtypes = [i, i]
+    lib.admm_shared_bytes.restype = ctypes.c_longlong
+    lib.admm_error_string.argtypes = [i]
+    lib.admm_error_string.restype = ctypes.c_char_p
+
+
+LIBRARY = CudaLibrary("admm_qp", _declare)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _mv(M, v):
+    return torch.matmul(M, v[..., None])[..., 0]
+
+
+def admm_iterations_twin(d: ADMMData, s: ADMMState, *, sigma: float,
+                         alpha: float, eps_abs: float, eps_rel: float,
+                         max_iter: int, n_iters: int) -> ADMMState:
+    """Plain PyTorch version of K6, any float dtype.  On the CPU it stops
+    once every lane is done (the remaining iterations would change
+    nothing)."""
+    At = d.A.transpose(1, 2)
+    cd = d.cinv[:, None] * d.Dinv
+    q_u = cd * d.q
+    on_cpu = s.x.device.type == "cpu"
+    for _ in range(n_iters):
+        if on_cpu and bool(s.done.all()):
+            break
+        rhs = sigma * s.x - d.q + _mv(At, d.rho_vec * s.z - s.y)
+        x_t = _mv(d.minv, rhs)
+        z_t = _mv(d.A, x_t)
+        x_new = alpha * x_t + (1 - alpha) * s.x
+        z_relax = alpha * z_t + (1 - alpha) * s.z
+        z_new = torch.clamp(z_relax + s.y / d.rho_vec, d.l, d.u)
+        y_new = s.y + d.rho_vec * (z_relax - z_new)
+
+        # unscaled residuals (OSQP terminates on unscaled data)
+        Ax_u = d.Einv * _mv(d.A, x_new)
+        z_u = d.Einv * z_new
+        r_prim = (Ax_u - z_u).abs().amax(-1)
+        Px_u = cd * _mv(d.P, x_new)
+        Aty_u = cd * _mv(At, y_new)
+        r_dual = (Px_u + q_u + Aty_u).abs().amax(-1)
+        prim_norm = torch.maximum(Ax_u.abs().amax(-1), z_u.abs().amax(-1))
+        dual_norm = torch.maximum(
+            torch.maximum(Px_u.abs().amax(-1), Aty_u.abs().amax(-1)),
+            q_u.abs().amax(-1))
+        converged = (r_prim < eps_abs + eps_rel * prim_norm) \
+            & (r_dual < eps_abs + eps_rel * dual_norm)
+        it = s.it + 1
+        new = ADMMState(x=x_new, z=z_new, y=y_new, it=it, r_prim=r_prim,
+                        r_dual=r_dual, prim_norm=prim_norm,
+                        dual_norm=dual_norm,
+                        done=converged | (it >= max_iter))
+        frozen = s.done
+        s = ADMMState(*[
+            torch.where(frozen[:, None] if old.dim() == 2 else frozen, old,
+                        nxt) for old, nxt in zip(s, new)])
+    return s
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _check(t, name, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"admm_iterations: {name} on {t.device}, P on "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"admm_iterations: {name} must be {dtype}, got "
+                        f"{t.dtype}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"admm_iterations: {name} must be a contiguous "
+                         f"{list(shape)} tensor, got {list(t.shape)}")
+
+
+def admm_iterations(d: ADMMData, s: ADMMState, *, sigma: float, alpha: float,
+                    eps_abs: float, eps_rel: float, max_iter: int,
+                    n_iters: int) -> ADMMState:
+    """K6: advance every lane that is not done by at most `n_iters` ADMM
+    iterations.  Returns a new state; `d` and `s` are left as they are."""
+    dev = d.P.device
+    kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
+              max_iter=max_iter, n_iters=n_iters)
+    if dev.type == "cpu":
+        return admm_iterations_twin(d, s, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"admm_iterations: no kernel for device {dev}")
+    if d.P.dim() != 3 or d.A.dim() != 3:
+        raise ValueError("admm_iterations: P must be [B, n, n] and A "
+                         "[B, m, n]")
+    B, n, m = d.P.shape[0], d.P.shape[1], d.A.shape[1]
+    f32 = torch.float32
+    for name, t, shape in [
+            ("P", d.P, (B, n, n)), ("q", d.q, (B, n)), ("A", d.A, (B, m, n)),
+            ("l", d.l, (B, m)), ("u", d.u, (B, m)),
+            ("rho_vec", d.rho_vec, (B, m)), ("minv", d.minv, (B, n, n)),
+            ("Dinv", d.Dinv, (B, n)), ("Einv", d.Einv, (B, m)),
+            ("cinv", d.cinv, (B,)), ("x", s.x, (B, n)), ("z", s.z, (B, m)),
+            ("y", s.y, (B, m)), ("r_prim", s.r_prim, (B,)),
+            ("r_dual", s.r_dual, (B,)), ("prim_norm", s.prim_norm, (B,)),
+            ("dual_norm", s.dual_norm, (B,))]:
+        _check(t, name, shape, f32, dev)
+    _check(s.it, "it", (B,), torch.int32, dev)
+    _check(s.done, "done", (B,), torch.bool, dev)
+    need = shared_bytes(n, m)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"admm_iterations: a lane of an (n={n}, m={m}) QP needs {need} "
+            f"bytes of shared memory, a thread block has {MAX_SHARED_BYTES}; "
+            "the kernel keeps P, A and the inverse resident and serves no "
+            "larger shape (condense the QP)")
+    if B == 0:
+        return s
+    out = ADMMState(*[torch.empty_like(t) for t in s])
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: t.data_ptr()
+    err = lib.admm_iterations(
+        *[ptr(t) for t in d], *[ptr(t) for t in s], *[ptr(t) for t in out],
+        B, n, m, float(sigma), float(alpha), float(1 - alpha),
+        float(eps_abs), float(eps_rel), int(max_iter), int(n_iters), stream)
+    if err != 0:
+        msg = lib.admm_error_string(err).decode()
+        raise RuntimeError(f"admm_iterations launch failed: {msg} ({err})")
+    launches["admm_iterations"] += 1
+    return out

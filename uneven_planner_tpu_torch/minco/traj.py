@@ -32,6 +32,15 @@ class SE2Traj(NamedTuple):
         return torch.minimum(self.ts_xy.sum(-1), self.ts_yaw.sum(-1))
 
 
+def expand_traj(traj: SE2Traj, B: int) -> SE2Traj:
+    """One trajectory (a batch of one) shared by B lanes, as a contiguous
+    batch of B."""
+    if traj.c_xy.shape[0] != 1:
+        raise ValueError("a shared trajectory is a batch of one")
+    return SE2Traj(*[a.expand((B,) + a.shape[1:]).contiguous()
+                     for a in traj])
+
+
 def se2_state(traj: SE2Traj, t: torch.Tensor):
     """(pos [B, T, 2], vel, acc, yaw [B, T], dyaw, d2yaw) at global times
     t [B, T]."""
