@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (uneven_planner_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase: the run of record
+    python3 chip_smoke.py --phases gather,admm  # device, build, these only
 
 Phases, each of which must pass (exit code 1 otherwise):
   1. device   CUDA present, full-fp32 matmul settings, card name and power
@@ -47,11 +48,16 @@ Phases, each of which must pass (exit code 1 otherwise):
               more, each alone, for the split of the time.
 Prints the kernels' JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package beside
-it, it exits 2 and prints no result.
+it, it exits 2 and prints no result.  `--phases` names phases 3-11 by their
+short names (PHASES below; 6 runs with 5 and the plan's profile with 8): it
+runs the device and build steps and those phases, prints their lines and
+`# total`, and ends with {"partial": [...]} instead of the kernels' line
+and the ok line, so a partial run never passes for the whole.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -98,6 +104,10 @@ OPS_TANH = 22
 MPC_LANES, MPC_TICKS = 256, 256
 PIPE_LANES, PIPE_TICKS = 64, 500
 MAX_TRACK_ERR = 0.05      # metres, mean over a lane's pre-goal ticks
+# phase names for --phases, in the order a full run takes them
+PHASES = ("terrain", "gather", "tanh", "admm", "small-reference",
+          "headline", "plan-reference", "plan", "track-reference", "mpc",
+          "pipeline")
 
 
 def log(*a):
@@ -419,7 +429,8 @@ def phase_headline(device, smi):
 
 def device_time_by_kernel(prof):
     """(total device microseconds, [(microseconds, kernel name, calls)]
-    sorted by time) from a torch.profiler run."""
+    sorted by time) from a torch.profiler run; raises if the profiler saw
+    no device time."""
     import torch
     rows, total = [], 0.0
     for e in prof.key_averages():
@@ -429,6 +440,8 @@ def device_time_by_kernel(prof):
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dev_us, e.key, e.count))
             total += dev_us
+    if total <= 0:
+        raise RuntimeError("the profiler recorded no device time")
     rows.sort(reverse=True)
     return total, rows
 
@@ -455,8 +468,8 @@ def phase_profile(ctx, steps=16):
         wall = time.perf_counter() - t0
     total, rows = device_time_by_kernel(prof)
     out = dict(steps=steps, wall_ms_per_step=wall / steps * 1e3,
-               device_ms_per_step=total / steps / 1e3 if total else None,
-               device_busy_share=(total / 1e6 / wall) if total else None,
+               device_ms_per_step=total / steps / 1e3,
+               device_busy_share=total / 1e6 / wall,
                top=[dict(kernel=k[:80], device_ms_per_step=u / steps / 1e3,
                          calls_per_step=c / steps) for u, k, c in rows[:8]])
     log("# profile " + json.dumps(out))
@@ -814,7 +827,7 @@ def phase_plan(device, smi):
 
 def phase_plan_profile(ctx):
     """Kernel time by name and the device's busy share over one full-width
-    search (a measurement: its absence fails nothing)."""
+    search."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from uneven_planner_tpu_torch.frontend import kino_init
@@ -830,13 +843,14 @@ def phase_plan_profile(ctx):
         wall = time.perf_counter() - t0
     total, rows = device_time_by_kernel(prof)
     out = dict(rounds=rounds, wall_s=wall,
-               device_ms=total / 1e3 if total else None,
-               device_busy_share=(total / 1e6 / wall) if total else None,
+               device_ms=total / 1e3,
+               device_busy_share=total / 1e6 / wall,
                port_kernels={
                    name: dict(device_ms=sum(u for u, k, _ in rows
                                             if name in k) / 1e3,
                               calls=sum(c for _, k, c in rows if name in k))
                    for name in ("tv_packed16_kernel", "gather_rows_kernel",
+                                "gather_bytes_smem_kernel",
                                 "gather_along_kernel")},
                top=[dict(kernel=k[:80], device_ms=u / 1e3, calls=c)
                     for u, k, c in rows[:10]])
@@ -1203,31 +1217,27 @@ def phase_mpc(device, smi):
     s = rollout.roll_init(torch.as_tensor(s0, device=device), cfg)
     for _ in range(8):
         s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
-    prof_out = None
-    try:    # a measurement, not a check: its absence fails nothing
-        n_prof = 4
+    n_prof = 4
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(n_prof):
+            s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            for _ in range(n_prof):
-                s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-        total, rows = device_time_by_kernel(prof)
-        admm_us = sum(u for u, k, _ in rows if "admm_kernel" in k)
-        prof_out = dict(
-            ticks=n_prof, wall_ms_per_tick=wall / n_prof * 1e3,
-            device_ms_per_tick=total / n_prof / 1e3 if total else None,
-            device_busy_share=(total / 1e6 / wall) if total else None,
-            kernels_per_tick=sum(c for _, _, c in rows) / n_prof,
-            admm_kernel_ms_per_tick=admm_us / n_prof / 1e3,
-            admm_kernel_calls_per_tick=sum(
-                c for _, k, c in rows if "admm_kernel" in k) / n_prof,
-            top=[dict(kernel=k[:80], device_ms_per_tick=u / n_prof / 1e3,
-                      calls_per_tick=c / n_prof) for u, k, c in rows[:8]])
-    except Exception as e:
-        log(f"# mpc profile not measured: {e!r}")
+        wall = time.perf_counter() - t1
+    total, rows = device_time_by_kernel(prof)
+    admm_us = sum(u for u, k, _ in rows if "admm_kernel" in k)
+    prof_out = dict(
+        ticks=n_prof, wall_ms_per_tick=wall / n_prof * 1e3,
+        device_ms_per_tick=total / n_prof / 1e3,
+        device_busy_share=total / 1e6 / wall,
+        kernels_per_tick=sum(c for _, _, c in rows) / n_prof,
+        admm_kernel_ms_per_tick=admm_us / n_prof / 1e3,
+        admm_kernel_calls_per_tick=sum(
+            c for _, k, c in rows if "admm_kernel" in k) / n_prof,
+        top=[dict(kernel=k[:80], device_ms_per_tick=u / n_prof / 1e3,
+                  calls_per_tick=c / n_prof) for u, k, c in rows[:8]])
 
     out = dict(
         lanes=MPC_LANES, ticks=MPC_TICKS, card=smi,
@@ -1349,70 +1359,13 @@ def phase_pipeline(device, smi):
     return out
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    try:
-        import uneven_planner_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the port package is missing: {e}",
-              file=sys.stderr)
-        return 2
-
-    from uneven_planner_tpu_torch import headline
-    t_start = time.perf_counter()
-    laps, t_lap = {}, t_start
-
-    def lap(name):
-        nonlocal t_lap
-        now = time.perf_counter()
-        laps[name], t_lap = round(now - t_lap, 1), now
-
-    dev, smi = phase_device()
-    phase_build()
-    lap("device+build")
-    _, grid = headline.scene_setup(device=dev)
-    variants = phase_kernels(grid)
-    del grid
-    lap("terrain kernels")
-    gathers = phase_gather_kernels(dev)
-    lap("gather kernels")
-    tanhs, probe_a = phase_elementwise_kernel(dev)
-    lap("tanh kernel")
-    admms = phase_admm_kernel(dev)
-    lap("admm kernel")
-    phase_small_reference(dev)
-    lap("small reference")
-    head, ctx = phase_headline(dev, smi)
-    lap("headline")
-    try:    # a measurement, not a check: its absence fails nothing
-        phase_profile(ctx)
-    except Exception as e:
-        log(f"# profile not measured: {e!r}")
-    del ctx
-    phase_plan_reference(dev)
-    lap("plan reference")
-    plan, plan_ctx = phase_plan(dev, smi)
-    lap("plan")
-    try:
-        phase_plan_profile(plan_ctx)
-    except Exception as e:
-        log(f"# plan-profile not measured: {e!r}")
-    del plan_ctx
-    phase_track_reference(dev)
-    lap("track reference")
-    mpc = phase_mpc(dev, smi)
-    lap("mpc")
-    pipe = phase_pipeline(dev, smi)
-    lap("pipeline")
-
+def kernel_entries(r):
+    """The kernels' JSON entries from the results of a full run, `r` keyed
+    by phase name."""
+    variants, gathers, admms = r["terrain"], r["gather"], r["admm"]
+    tanhs, probe_a = r["tanh"]
+    head, plan, mpc, pipe = (r[k] for k in ("headline", "plan", "mpc",
+                                             "pipeline"))
     # each kernel at the shape and mode its main path gives it: K1 hi-only
     # with J (every solver evaluation) and K2 with J (init_scaling) on the
     # headline path, with their variants on the planning path and the
@@ -1513,9 +1466,94 @@ def main() -> int:
                       for w in admms[1:]]))
     for e in entries[:4]:
         e["launches_pipeline"] = pipe["launches"][e["name"]]
+    return entries
+
+
+def parse_phases(argv=None) -> list:
+    """The phases to run, in the script's order: every phase without
+    `--phases`; an unknown or empty list raises ValueError."""
+    p = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one GPU.")
+    p.add_argument("--phases", default=None,
+                   help="comma-separated phases to run after the device and "
+                   f"build steps, of: {','.join(PHASES)} (a development "
+                   "aid: a partial run prints no ok line)")
+    args = p.parse_args(argv)
+    if args.phases is None:
+        return list(PHASES)
+    names = [s.strip() for s in args.phases.split(",") if s.strip()]
+    unknown = [s for s in names if s not in PHASES]
+    if unknown or not names:
+        raise ValueError(f"--phases: unknown or no phase in {args.phases!r}; "
+                         f"phases are {', '.join(PHASES)}")
+    return [s for s in PHASES if s in names]
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import uneven_planner_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing: {e}",
+              file=sys.stderr)
+        return 2
+
+    from uneven_planner_tpu_torch import headline
+    t_start = time.perf_counter()
+    laps, t_lap = {}, t_start
+
+    def lap(name):
+        nonlocal t_lap
+        now = time.perf_counter()
+        laps[name], t_lap = round(now - t_lap, 1), now
+
+    dev, smi = phase_device()
+    phase_build()
+    lap("device+build")
+
+    def headline_and_profile():
+        head, ctx = phase_headline(dev, smi)
+        phase_profile(ctx)
+        return head
+
+    def plan_and_profile():
+        plan, ctx = phase_plan(dev, smi)
+        phase_plan_profile(ctx)
+        return plan
+
+    run = {
+        "terrain": lambda: phase_kernels(
+            headline.scene_setup(device=dev)[1]),
+        "gather": lambda: phase_gather_kernels(dev),
+        "tanh": lambda: phase_elementwise_kernel(dev),
+        "admm": lambda: phase_admm_kernel(dev),
+        "small-reference": lambda: phase_small_reference(dev),
+        "headline": headline_and_profile,
+        "plan-reference": lambda: phase_plan_reference(dev),
+        "plan": plan_and_profile,
+        "track-reference": lambda: phase_track_reference(dev),
+        "mpc": lambda: phase_mpc(dev, smi),
+        "pipeline": lambda: phase_pipeline(dev, smi),
+    }
+    r = {}
+    for name in phases:
+        r[name] = run[name]()
+        lap(name)
     log(f"# total {time.perf_counter() - t_start:.1f} s, by phase (the "
-        f"profiles count with the phase after them): {json.dumps(laps)}")
-    print(json.dumps({"kernels": entries}), flush=True)
+        f"profiles count with their phase): {json.dumps(laps)}")
+    if phases != list(PHASES):
+        print(json.dumps({"partial": phases}), flush=True)
+        return 0
+    print(json.dumps({"kernels": kernel_entries(r)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,117 @@
+"""`chip_smoke.py`'s phase switch and the shape limits of the port's
+kernels, checked without a card (the kernels themselves are held against
+their twins on the card by `tests/test_torch_kernels.py`)."""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from uneven_planner_tpu_torch.kernels import admm, gather
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phases_default_is_every_phase():
+    cs = _chip_smoke()
+    assert cs.parse_phases([]) == list(cs.PHASES)
+    assert len(cs.PHASES) == 11 and len(set(cs.PHASES)) == 11
+
+
+@pytest.mark.parametrize("arg,want", [
+    ("admm", ["admm"]),
+    ("admm,gather", ["gather", "admm"]),          # the script's order
+    (" mpc , terrain ,mpc", ["terrain", "mpc"]),
+    ("pipeline,small-reference", ["small-reference", "pipeline"])])
+def test_phases_subset(arg, want):
+    assert _chip_smoke().parse_phases(["--phases", arg]) == want
+
+
+@pytest.mark.parametrize("arg", ["gathers", "admm,nope", "", ","])
+def test_phases_unknown_or_empty_raises(arg):
+    with pytest.raises(ValueError, match="phase"):
+        _chip_smoke().parse_phases(["--phases", arg])
+
+
+def test_smoke_without_a_card_prints_no_result(tmp_path):
+    """Without CUDA, or alone in a directory, the script exits non-zero and
+    prints neither the ok line nor a partial one."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the run without a card")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    for script, args in ((os.path.join(ROOT, "chip_smoke.py"), []),
+                         (str(alone), ["--phases", "admm"])):
+        r = subprocess.run([sys.executable, script, *args],
+                           capture_output=True, text=True, timeout=120,
+                           cwd=tmp_path)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout and '"partial"' not in r.stdout
+
+
+def _old_shared_bytes(n, m):
+    """The layout of the thread-per-output kernel this one replaced: its
+    limits are the shapes the card must still take."""
+    ld = n | 1
+    return 4 * (2 * n * ld + m * ld + 8 * n + 9 * m + 32)
+
+
+def test_admm_shared_bytes_admits_every_shape_admitted_before():
+    admitted = [(n, m) for n in range(1, 151) for m in range(1, 461)
+                if _old_shared_bytes(n, m) <= admm.MAX_SHARED_BYTES]
+    assert (1, 1) in admitted and (116, 230) in admitted
+    refused = [s for s in admitted
+               if admm.shared_bytes(*s) > admm.MAX_SHARED_BYTES]
+    assert refused == []
+    assert admm.shared_bytes(150, 268) > admm.MAX_SHARED_BYTES
+    assert admm.shared_bytes(*admm.FIXED_SHAPE) == 61992
+
+
+def test_gather_rows_route_and_vector_head():
+    """Which byte tables go to the shared-memory kernel, and the scalar
+    head the wrapper computes for an index view."""
+    lim = gather.SMEM_TABLE_BYTES
+    b = lambda *s: torch.zeros(s, dtype=torch.bool)
+    assert gather.uses_shared_table(b(40000))
+    assert gather.uses_shared_table(b(lim)) and gather.uses_shared_table(
+        b(lim, 1))
+    assert not gather.uses_shared_table(b(lim + 1))
+    assert not gather.uses_shared_table(b(100, 2))
+    assert not gather.uses_shared_table(torch.zeros(100))
+    out = torch.empty(64, dtype=torch.uint8)
+    for dtype, per_vec in ((torch.int32, 4), (torch.int64, 2)):
+        base = torch.zeros(64, dtype=dtype)
+        assert base.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        assert gather._vector_head(base, out) == 0
+        # one element in: the head runs to the next 16 bytes, and the output
+        # after it is then misaligned, so every index goes one by one
+        view = base[1:]
+        assert gather._vector_head(view, out) == view.shape[0]
+        assert gather._vector_head(view, out[1:]) == per_vec - 1
+        assert gather._vector_head(base[:1], out) == 0
+
+
+@pytest.mark.parametrize("n,length", [(40000, 0), (40000, 7),
+                                      (40000, 4099), (gather.SMEM_TABLE_BYTES
+                                                      + 1, 33)])
+def test_gather_rows_byte_table_on_cpu_clips(n, length):
+    """On the CPU the wrapper is the twin: clipped reads of a byte table."""
+    g = torch.Generator().manual_seed(n + length)
+    table = torch.rand(n, generator=g) < 0.3
+    idx = torch.randint(-n, 2 * n, (length,), generator=g,
+                        dtype=torch.int32)
+    got = gather.gather_rows(table, idx)
+    want = table[idx.long().clamp(0, n - 1)]
+    assert torch.equal(got, want)
+    assert torch.equal(gather.gather_rows(table, idx.long()), want)

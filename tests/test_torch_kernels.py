@@ -138,6 +138,59 @@ def test_gather_rows_kernel_matches_twin_on_card(card, dtype, width,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("length", [0, 1, 3, 5, 4 * 10007 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_rows_shared_table_matches_twin_on_card(card, idx_dtype,
+                                                       length, offset):
+    """The shared-memory path for byte tables (the 40,000-cell occupancy
+    table of the search) equals the twin bit for bit: both index types,
+    ragged lengths, an index view one element off its 16-byte alignment,
+    and indices out of range on both sides."""
+    from uneven_planner_tpu_torch.kernels import gather
+    rng = np.random.default_rng(length + offset)
+    n = 40000
+    table = torch.tensor(rng.random(n) < 0.1).to(card)
+    assert gather.uses_shared_table(table)
+    base = torch.tensor(_indices(rng, n, length + 1) if length + 1 >= 4
+                        else rng.integers(-n, 2 * n, length + 1))
+    base = base.to(idx_dtype).to(card)
+    idx = base[offset:offset + length]
+    if length:
+        assert idx.data_ptr() % 16 == (offset * idx.element_size()) % 16
+    before = gather.launches["gather_rows"]
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather.launches["gather_rows"] == before + (1 if length else 0)
+    assert got.shape == (length,) and got.dtype == torch.bool
+    assert torch.equal(got, gather.gather_rows_twin(table, idx))
+    # a uint8 table (with the index view off its alignment, the output
+    # after the head is not aligned either: the scalar loop takes it all)
+    bytes_ = table.to(torch.uint8) * 7
+    assert torch.equal(gather.gather_rows(bytes_, idx),
+                       gather.gather_rows_twin(bytes_, idx))
+
+
+@pytest.mark.cuda
+def test_gather_rows_table_over_the_shared_limit_on_card(card):
+    """A byte table one byte over the shared-memory limit takes the
+    generic kernel, one at the limit the shared-memory one; both equal the
+    twin."""
+    from uneven_planner_tpu_torch.kernels import gather
+    rng = np.random.default_rng(3)
+    for n, shared in ((gather.SMEM_TABLE_BYTES + 1, False),
+                      (gather.SMEM_TABLE_BYTES, True)):
+        table = torch.tensor(rng.integers(0, 256, n)).to(torch.uint8) \
+            .to(card)
+        assert gather.uses_shared_table(table) == shared
+        for idx_dtype in (torch.int32, torch.int64):
+            idx = torch.tensor(_indices(rng, n, 100003)).to(idx_dtype) \
+                .to(card)
+            assert torch.equal(gather.gather_rows(table, idx),
+                               gather.gather_rows_twin(table, idx))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
@@ -362,8 +415,10 @@ def test_admm_kernel_rejects_what_it_does_not_take_on_card(card):
                              **ADMM_KW)
     # the full tracking QP (n = 150, m = 268) does not fit in shared memory
     assert admm.shared_bytes(150, 268) > admm.MAX_SHARED_BYTES
-    assert admm.shared_bytes(60, 118) == 64368
-    assert int(admm.LIBRARY.load().admm_shared_bytes(60, 118)) == 64368
+    for n, m in ((60, 118), (8, 12), (116, 230), (150, 268)):
+        assert int(admm.LIBRARY.load().admm_shared_bytes(n, m)) \
+            == admm.shared_bytes(n, m)
+    assert admm.shared_bytes(60, 118) == 61992
     big, sb = _admm_case(1, 150, 268, seed=1, device=card)
     with pytest.raises(ValueError, match="shared memory"):
         admm.admm_iterations(big, sb, n_iters=1, **ADMM_KW)

@@ -20,26 +20,53 @@
 //
 // What bounds it: operations, and of those the latency of a dependent chain,
 // not the card's arithmetic rate: 2 (4 m n + 2 n^2) flops per iteration on
-// 2 n^2 + m n resident words, with six products that each wait for the one
+// 2 n^2 + m n resident words, with products that each wait for the one
 // before.  The one-off traffic (the lane's three matrices in, the state in
-// and out) is small beside 400 iterations.  Design: one thread block per
-// lane; Minv, P and A are staged once into shared memory (row stride padded
-// to an odd number of words, so a thread per row reads without bank
-// conflicts, and a thread per column reads consecutive words); every
-// product gives one thread one output row; the three products of the
-// residuals run side by side on disjoint threads; the four max-reductions
-// are warp shuffles and one pass over the warps' partial results; the loop,
-// the termination test and the per-lane freeze are inside the kernel, so a
-// QP pass is one launch whatever the iteration count.  At n = 60, m = 118
-// (the condensed tracking QP) a lane takes 64,368 bytes of shared memory,
-// above the 48 KB default, so the launcher opts in to the size it needs and
-// refuses a shape beyond the 227 KB a block can have.
+// and out) is small beside 400 iterations.  Design: one thread block of 256
+// threads per lane, with the loop, the termination test and the per-lane
+// freeze inside the kernel, so a QP pass is one launch whatever the
+// iteration count.  Minv, P and A are staged once into shared memory.  An
+// iteration is two dependent product stages and one reduction:
 //
-// Sums run in index order in f32 with separate multiply and add
-// (-fmad=false); a library product sums in another order, so the plain
-// PyTorch version agrees to rounding, not bit for bit.  max and clip
-// propagate NaN, as jnp.max and jnp.clip do: a lane with a non-finite
-// factorisation runs to its limit and returns NaN, which the caller detects.
+//   B  x~ = Minv rhs and z~ = A x~, then the x, z, y updates and
+//      v+ = rho z+ - y+, each on the thread that computed its output;
+//   C  side by side: A x+ (a thread per row, which also forms the primal
+//      residual of its row), and for each column group (8 threads, 4
+//      columns): A'y+ and A'v+ over the rows (a slice of rows per thread,
+//      the two sums sharing each read of A), P x+ over its 4 rows (a slice
+//      of 16-byte words per thread), combined by a reduce-scatter with
+//      __shfl_xor_sync in a fixed order, after which each lane holds one
+//      column: its dual residual and the next rhs = sigma x+ - q + A'v+;
+//   each warp's maxima of the residuals and norms (one __reduce_max_sync
+//   each: they are >= 0 or NaN, so their bit patterns order them) into
+//   shared memory.
+//
+// That is two barriers an iteration where the thread-per-output design had
+// six.  The termination test of iteration k (the block maxima, read back
+// by every warp) runs while iteration k + 1's first product is formed; the
+// product is written only once the test has said to go on.  Where B reads
+// W = A Minv (formed once per launch while staging), x~ and z~ are one
+// stage: the condensed tracking QP (n = 60, m = 118, both tracking paths)
+// is compiled for its shape (every loop unrolled, loads issued ahead of the
+// adds), keeps each thread's row of [Minv; W] in registers, and reads A, P
+// and the vectors from shared memory as 16-byte words at a row stride of n
+// words (n = 4 mod 8: a quarter warp reading eight consecutive rows, or
+// eight consecutive words of one row, meets eight different bank groups).
+// Every other shape takes the same design compiled for run-time sizes:
+// scalar reads at an odd row stride, x~ and z~ in two stages (three
+// barriers an iteration), column groups of one column.  At n = 60, m = 118
+// a lane takes 61,992 bytes of shared memory, above the 48 KB default, so
+// the launcher opts in to the size it needs and refuses a shape beyond the
+// 227 KB a block can have.
+//
+// Sums run in a fixed order (per thread four running sums or one per
+// column, then a fixed exchange between lanes), with fused multiply-adds in the products
+// (the file's other arithmetic is unfused, as the package's build flags
+// make it), so a run of 25 + 375 iterations equals one of 400 bit for bit;
+// a library product sums in another order, so the plain PyTorch version
+// agrees to rounding, not bit for bit.  max and clip propagate NaN, as
+// jnp.max and jnp.clip do: a lane with a non-finite factorisation runs to
+// its limit and returns NaN, which the caller detects.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,7 +76,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlices = 8;          // threads of a column group
 constexpr int kMaxShared = 232448;  // bytes a block can have on sm_90
+// the condensed tracking QP, compiled for its shape
+constexpr int kFixedN = 60, kFixedM = 118;
 
 struct AdmmArgs {
   // per-lane data, contiguous: P, minv [n, n]; A [m, n]; q, dinv [n];
@@ -64,7 +94,7 @@ struct AdmmArgs {
   int* it;
   float *rp, *rd, *pn, *dn;
   unsigned char* done;
-  int n, m, ld;
+  int n, m;
   float sigma, alpha, one_minus_alpha, eps_abs, eps_rel;
   int max_iter, n_iters;
 };
@@ -77,23 +107,193 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? NAN : fminf(a, b);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// The largest of the warp's v, each >= 0 or NaN (the residuals and norms
+// are maxima of absolute values): such floats order as their bit patterns,
+// and a NaN with its sign cleared is above +inf, so the result is NaN when
+// any v is, as nan_max gives it.
+__device__ __forceinline__ float warp_absmax(float v) {
+  return __uint_as_float(
+      __reduce_max_sync(0xffffffffu, __float_as_uint(v)));
 }
 
-// Words of shared memory a lane needs: the three matrices at row stride ld,
-// eight n-vectors, nine m-vectors and the reduction scratch (the carve-up at
-// the top of the kernel).
-__host__ __device__ inline long long shared_words(int n, int m, int ld) {
-  return 2LL * n * ld + (long long)m * ld + 8LL * n + 9LL * m + 4 * kWarps;
+__host__ __device__ inline bool is_fixed(int n, int m) {
+  return n == kFixedN && m == kFixedM;
 }
 
-__global__ void __launch_bounds__(kThreads) admm_kernel(AdmmArgs a) {
-  extern __shared__ float sm[];
+// Row stride of the shared matrices, in words.
+__host__ __device__ inline int row_stride(int n, int m) {
+  return is_fixed(n, m) ? n : (n | 1);
+}
+
+// Words of shared memory a lane needs: the reduction scratch, Minv, P and A
+// at the row stride, three n-vectors at the row stride (x, rhs, x~), three
+// of n words (q, cinv dinv, cinv dinv q) and seven m-vectors (the carve-up
+// at the top of the kernel).
+__host__ __device__ inline long long shared_words(int n, int m) {
+  const long long ld = row_stride(n, m);
+  return (2LL * n + m) * ld + 3 * ld + 3LL * n + 7LL * m + 4 * kWarps;
+}
+
+// sum_c row[c] vec[c] over c < n in a fixed order: four running sums (by
+// c mod 4), then (s0 + s1) + (s2 + s3).  NT > 0: n = NT, 16-byte reads.
+template <int NT>
+__device__ __forceinline__ float row_dot(const float* row, const float* vec,
+                                         int n) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  if constexpr (NT > 0) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* v4 = reinterpret_cast<const float4*>(vec);
+#pragma unroll
+    for (int c = 0; c < NT / 4; ++c) {
+      const float4 a = r4[c], b = v4[c];
+      s0 = fmaf(a.x, b.x, s0);
+      s1 = fmaf(a.y, b.y, s1);
+      s2 = fmaf(a.z, b.z, s2);
+      s3 = fmaf(a.w, b.w, s3);
+    }
+  } else {
+    int c = 0;
+    for (; c + 3 < n; c += 4) {
+      s0 = fmaf(row[c], vec[c], s0);
+      s1 = fmaf(row[c + 1], vec[c + 1], s1);
+      s2 = fmaf(row[c + 2], vec[c + 2], s2);
+      s3 = fmaf(row[c + 3], vec[c + 3], s3);
+    }
+    if (c < n) s0 = fmaf(row[c], vec[c], s0);
+    if (c + 1 < n) s1 = fmaf(row[c + 1], vec[c + 1], s1);
+    if (c + 2 < n) s2 = fmaf(row[c + 2], vec[c + 2], s2);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// The same sum with the row in registers.
+template <int NT>
+__device__ __forceinline__ float reg_dot(const float (&w)[NT],
+                                         const float* vec) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  const float4* v4 = reinterpret_cast<const float4*>(vec);
+#pragma unroll
+  for (int c = 0; c < NT / 4; ++c) {
+    const float4 b = v4[c];
+    s0 = fmaf(w[4 * c], b.x, s0);
+    s1 = fmaf(w[4 * c + 1], b.y, s1);
+    s2 = fmaf(w[4 * c + 2], b.z, s2);
+    s3 = fmaf(w[4 * c + 3], b.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// One column group: columns j0 .. j0 + CW - 1 on kSlices threads, slice k
+// taking rows k, k + 8, ... of A (for A'y and A'v) and words k, k + 8, ...
+// of the group's rows of P (16-byte words when CW = 4).  The partial sums
+// are combined over the group's lanes (`mask`) in a fixed order: for CW = 4
+// a reduce-scatter (lanes exchange the two columns they do not keep, then
+// one of the two, then add the last pair), after which lanes k with
+// (k >> 1) & 3 == r hold the sums of column j0 + r; for CW = 1 a butterfly.
+// Two lanes that hold a column add the same pairs, so they hold the same
+// bits.  Returns the lane's column offset r and its three sums.
+template <int CW, int NT, int MT>
+__device__ __forceinline__ int column_group(
+    const float* sA, const float* sP, const float* sx, const float* sy,
+    const float* sv, int j0, int k, int n, int m, int ld, unsigned mask,
+    float& ay_r, float& av_r, float& px_r) {
+  float ay[CW], av[CW], px[CW];
+#pragma unroll
+  for (int r = 0; r < CW; ++r) ay[r] = av[r] = px[r] = 0.0f;
+  if constexpr (CW == 4) {
+#pragma unroll
+    for (int t = 0; t < (MT + kSlices - 1) / kSlices; ++t) {
+      const int i = k + t * kSlices;
+      if (i < MT) {
+        const float4 a = *reinterpret_cast<const float4*>(sA + i * ld + j0);
+        const float yi = sy[i], vi = sv[i];
+        ay[0] = fmaf(a.x, yi, ay[0]);
+        ay[1] = fmaf(a.y, yi, ay[1]);
+        ay[2] = fmaf(a.z, yi, ay[2]);
+        ay[3] = fmaf(a.w, yi, ay[3]);
+        av[0] = fmaf(a.x, vi, av[0]);
+        av[1] = fmaf(a.y, vi, av[1]);
+        av[2] = fmaf(a.z, vi, av[2]);
+        av[3] = fmaf(a.w, vi, av[3]);
+      }
+    }
+    const float4* x4 = reinterpret_cast<const float4*>(sx);
+#pragma unroll
+    for (int t = 0; t < (NT / 4 + kSlices - 1) / kSlices; ++t) {
+      const int c = k + t * kSlices;
+      if (c < NT / 4) {
+        const float4 b = x4[c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 p =
+              reinterpret_cast<const float4*>(sP + (j0 + r) * ld)[c];
+          px[r] = fmaf(p.x, b.x, px[r]);
+          px[r] = fmaf(p.y, b.y, px[r]);
+          px[r] = fmaf(p.z, b.z, px[r]);
+          px[r] = fmaf(p.w, b.w, px[r]);
+        }
+      }
+    }
+  } else {
+    for (int i = k; i < m; i += kSlices) {
+      const float a = sA[i * ld + j0];
+      ay[0] = fmaf(a, sy[i], ay[0]);
+      av[0] = fmaf(a, sv[i], av[0]);
+    }
+    for (int c = k; c < n; c += kSlices)
+      px[0] = fmaf(sP[j0 * ld + c], sx[c], px[0]);
+  }
+  if constexpr (CW == 4) {
+    static_assert(kSlices == 8, "the reduce-scatter is written for 8 lanes");
+    const bool hi4 = (k & 4) != 0, hi2 = (k & 2) != 0;
+    float y2[2], v2[2], p2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // keep columns {0, 1} or {2, 3}
+      y2[h] = (hi4 ? ay[2 + h] : ay[h]) +
+              __shfl_xor_sync(mask, hi4 ? ay[h] : ay[2 + h], 4);
+      v2[h] = (hi4 ? av[2 + h] : av[h]) +
+              __shfl_xor_sync(mask, hi4 ? av[h] : av[2 + h], 4);
+      p2[h] = (hi4 ? px[2 + h] : px[h]) +
+              __shfl_xor_sync(mask, hi4 ? px[h] : px[2 + h], 4);
+    }
+    ay_r = (hi2 ? y2[1] : y2[0]) + __shfl_xor_sync(mask, hi2 ? y2[0] : y2[1], 2);
+    av_r = (hi2 ? v2[1] : v2[0]) + __shfl_xor_sync(mask, hi2 ? v2[0] : v2[1], 2);
+    px_r = (hi2 ? p2[1] : p2[0]) + __shfl_xor_sync(mask, hi2 ? p2[0] : p2[1], 2);
+    ay_r += __shfl_xor_sync(mask, ay_r, 1);
+    av_r += __shfl_xor_sync(mask, av_r, 1);
+    px_r += __shfl_xor_sync(mask, px_r, 1);
+    return (k >> 1) & 3;
+  } else {
+#pragma unroll
+    for (int off = 1; off < kSlices; off <<= 1) {
+      ay[0] += __shfl_xor_sync(mask, ay[0], off);
+      av[0] += __shfl_xor_sync(mask, av[0], off);
+      px[0] += __shfl_xor_sync(mask, px[0], off);
+    }
+    ay_r = ay[0];
+    av_r = av[0];
+    px_r = px[0];
+    return 0;
+  }
+}
+
+__device__ __forceinline__ float dual_v(float rho, float z, float y) {
+  return rho * z - y;
+}
+
+// NT, MT > 0: compiled for n = NT, m = MT (n % 8 == 4); 0: run-time sizes.
+template <int NT, int MT>
+__global__ void __launch_bounds__(kThreads, 2) admm_kernel(AdmmArgs a) {
+  constexpr bool kFixed = NT > 0;
+  constexpr int CW = kFixed ? 4 : 1;   // columns of a column group
+  static_assert(!kFixed || (NT % 8 == 4 && NT + MT <= kThreads &&
+                            MT <= kThreads / 2 &&
+                            NT / 4 * kSlices <= kThreads / 2),
+                "fixed shape out of the design's range");
+  extern __shared__ __align__(16) float sm[];
   const int lane = blockIdx.x, tid = threadIdx.x;
-  const int n = a.n, m = a.m, ld = a.ld;
+  const int n = kFixed ? NT : a.n, m = kFixed ? MT : a.m;
+  const int ld = row_stride(n, m);
   const long long on = (long long)lane * n, om = (long long)lane * m;
 
   int it = a.it_in[lane];
@@ -118,27 +318,23 @@ __global__ void __launch_bounds__(kThreads) admm_kernel(AdmmArgs a) {
     return;
   }
 
-  float* s_minv = sm;
+  float4* s_red = reinterpret_cast<float4*>(sm);  // [kWarps] (rp, rd, pn, dn)
+  float* s_minv = sm + 4 * kWarps;
   float* s_P = s_minv + n * ld;
   float* s_A = s_P + n * ld;
-  float* s_q = s_A + m * ld;
-  float* s_x = s_q + n;
-  float* s_rhs = s_x + n;
-  float* s_xt = s_rhs + n;
-  float* s_cd = s_xt + n;    // cinv * dinv
+  float* s_x = s_A + m * ld;
+  float* s_rhs = s_x + ld;
+  float* s_xt = s_rhs + ld;
+  float* s_q = s_xt + ld;
+  float* s_cd = s_q + n;     // cinv * dinv
   float* s_qu = s_cd + n;    // cinv * dinv * q
-  float* s_pxu = s_qu + n;
-  float* s_atyu = s_pxu + n;
-  float* s_l = s_atyu + n;
+  float* s_z = s_qu + n;
+  float* s_y = s_z + m;
+  float* s_v = s_y + m;      // rho z - y
+  float* s_l = s_v + m;
   float* s_u = s_l + m;
   float* s_rho = s_u + m;
   float* s_einv = s_rho + m;
-  float* s_z = s_einv + m;
-  float* s_y = s_z + m;
-  float* s_v = s_y + m;
-  float* s_axu = s_v + m;
-  float* s_zu = s_axu + m;
-  float* s_red = s_zu + m;   // [4][kWarps]
 
   // ---- stage the lane once
   {
@@ -164,115 +360,170 @@ __global__ void __launch_bounds__(kThreads) admm_kernel(AdmmArgs a) {
       s_x[j] = a.x_in[on + j];
     }
     for (int i = tid; i < m; i += kThreads) {
+      const float z = a.z_in[om + i], y = a.y_in[om + i];
+      const float rho = a.rho[om + i];
       s_l[i] = a.l[om + i];
       s_u[i] = a.u[om + i];
-      s_rho[i] = a.rho[om + i];
+      s_rho[i] = rho;
       s_einv[i] = a.einv[om + i];
-      s_z[i] = a.z_in[om + i];
-      s_y[i] = a.y_in[om + i];
+      s_z[i] = z;
+      s_y[i] = y;
+      s_v[i] = dual_v(rho, z, y);
     }
   }
   __syncthreads();
 
-  const float sigma = a.sigma, alpha = a.alpha, oma = a.one_minus_alpha;
-  for (int k = 0; k < a.n_iters && !done; ++k) {
-    // v = rho z - y
-    for (int i = tid; i < m; i += kThreads)
-      s_v[i] = s_rho[i] * s_z[i] - s_y[i];
-    __syncthreads();
-    // rhs = sigma x - q + A'v  (thread per column of A)
-    for (int j = tid; j < n; j += kThreads) {
-      float acc = 0.0f;
-      for (int i = 0; i < m; ++i) acc += s_A[i * ld + j] * s_v[i];
-      s_rhs[j] = (sigma * s_x[j] - s_q[j]) + acc;
-    }
-    __syncthreads();
-    // x~ = Minv rhs  (thread per row)
-    for (int j = tid; j < n; j += kThreads) {
-      const float* row = s_minv + j * ld;
-      float acc = 0.0f;
-      for (int c = 0; c < n; ++c) acc += row[c] * s_rhs[c];
-      s_xt[j] = acc;
-    }
-    __syncthreads();
-    // z~ = A x~ and the z, y updates (thread per row of A); x update
-    for (int i = tid; i < m; i += kThreads) {
-      const float* row = s_A + i * ld;
-      float acc = 0.0f;
-      for (int c = 0; c < n; ++c) acc += row[c] * s_xt[c];
-      const float rho = s_rho[i], y = s_y[i];
-      const float z_relax = alpha * acc + oma * s_z[i];
-      const float z_new =
-          nan_min(nan_max(z_relax + y / rho, s_l[i]), s_u[i]);
-      s_y[i] = y + rho * (z_relax - z_new);
-      s_z[i] = z_new;
-      s_zu[i] = s_einv[i] * z_new;
-    }
-    for (int j = tid; j < n; j += kThreads)
-      s_x[j] = alpha * s_xt[j] + oma * s_x[j];
-    __syncthreads();
-    // unscaled A x+, P x+ and A'y+, side by side on disjoint threads
-    for (int t = tid; t < m + 2 * n; t += kThreads) {
-      float acc = 0.0f;
-      if (t < m) {
-        const float* row = s_A + t * ld;
-        for (int c = 0; c < n; ++c) acc += row[c] * s_x[c];
-        s_axu[t] = s_einv[t] * acc;
-      } else if (t < m + n) {
-        const int j = t - m;
-        const float* row = s_P + j * ld;
-        for (int c = 0; c < n; ++c) acc += row[c] * s_x[c];
-        s_pxu[j] = s_cd[j] * acc;
-      } else {
-        const int j = t - m - n;
-        for (int i = 0; i < m; ++i) acc += s_A[i * ld + j] * s_y[i];
-        s_atyu[j] = s_cd[j] * acc;
+  // The fixed shape: thread t < n + m keeps row t of [Minv; W] (W = A Minv,
+  // summed over k in order) in registers for stage B.
+  float w[kFixed ? NT : 1];
+  if constexpr (kFixed) {
+    if (tid < NT) {
+#pragma unroll
+      for (int c = 0; c < NT / 4; ++c) {
+        const float4 v = reinterpret_cast<const float4*>(s_minv + tid * ld)[c];
+        w[4 * c] = v.x;
+        w[4 * c + 1] = v.y;
+        w[4 * c + 2] = v.z;
+        w[4 * c + 3] = v.w;
+      }
+    } else if (tid < NT + MT) {
+      const float* arow = s_A + (tid - NT) * ld;
+#pragma unroll
+      for (int c = 0; c < NT; ++c) w[c] = 0.0f;
+#pragma unroll 1
+      for (int k = 0; k < NT; ++k) {
+        const float ak = arow[k];
+        const float4* mk = reinterpret_cast<const float4*>(s_minv + k * ld);
+#pragma unroll
+        for (int c = 0; c < NT / 4; ++c) {
+          const float4 v = mk[c];
+          w[4 * c] = fmaf(ak, v.x, w[4 * c]);
+          w[4 * c + 1] = fmaf(ak, v.y, w[4 * c + 1]);
+          w[4 * c + 2] = fmaf(ak, v.z, w[4 * c + 2]);
+          w[4 * c + 3] = fmaf(ak, v.w, w[4 * c + 3]);
+        }
       }
     }
-    __syncthreads();
-    // residuals and norms: block max of four quantities
-    float rp = 0.0f, rd = 0.0f, pn = 0.0f, dn = 0.0f;
-    for (int i = tid; i < m; i += kThreads) {
-      const float ax = s_axu[i], zu = s_zu[i];
+  }
+
+  const float sigma = a.sigma, alpha = a.alpha, oma = a.one_minus_alpha;
+  const unsigned group_mask = 0xffu << (tid & 24);
+
+  // Stage C: unscaled A x+ (with the primal residual and norm of each row),
+  // and per column group P x+, A'y+ (dual residual and norm) and A'v+ (the
+  // next rhs).  Fixed shape: rows on threads [0, 128), column groups on
+  // [128, 256); otherwise every thread takes both, in turn.
+  auto stage_c = [&](float& rp, float& rd, float& pn, float& dn) {
+    auto row = [&](int i) {
+      const float ax = s_einv[i] * row_dot<NT>(s_A + i * ld, s_x, n);
+      const float zu = s_einv[i] * s_z[i];
       rp = nan_max(rp, fabsf(ax - zu));
       pn = nan_max(pn, nan_max(fabsf(ax), fabsf(zu)));
+    };
+    auto columns = [&](int j0, int k) {
+      float ay, av, px;
+      const int j = j0 + column_group<CW, NT, MT>(s_A, s_P, s_x, s_y, s_v, j0,
+                                                  k, n, m, ld, group_mask, ay,
+                                                  av, px);
+      const float pxu = s_cd[j] * px, atyu = s_cd[j] * ay;
+      const float qu = s_qu[j];
+      rd = nan_max(rd, fabsf((pxu + qu) + atyu));
+      dn = nan_max(dn, nan_max(nan_max(fabsf(pxu), fabsf(atyu)), fabsf(qu)));
+      // one lane of those holding column j writes its rhs
+      if ((k & (CW == 4 ? 1 : kSlices - 1)) == 0)
+        s_rhs[j] = (sigma * s_x[j] - s_q[j]) + av;
+    };
+    if constexpr (kFixed) {
+      if (tid < kThreads / 2) {
+        if (tid < MT) row(tid);
+      } else {
+        const int g = (tid - kThreads / 2) / kSlices;
+        if (g < NT / 4) columns(4 * g, tid & (kSlices - 1));
+      }
+    } else {
+      for (int i = tid; i < m; i += kThreads) row(i);
+      for (int j = tid / kSlices; j < n; j += kThreads / kSlices)
+        columns(j, tid & (kSlices - 1));
     }
-    for (int j = tid; j < n; j += kThreads) {
-      const float px = s_pxu[j], aty = s_atyu[j], qu = s_qu[j];
-      rd = nan_max(rd, fabsf((px + qu) + aty));
-      dn = nan_max(dn, nan_max(nan_max(fabsf(px), fabsf(aty)), fabsf(qu)));
+  };
+
+  // the first rhs, from the state as it came in (the same arithmetic as in
+  // the loop, so a resumed run continues bit for bit)
+  {
+    float rp = 0.0f, rd = 0.0f, pn = 0.0f, dn = 0.0f;
+    stage_c(rp, rd, pn, dn);
+  }
+  __syncthreads();
+
+  auto update_z = [&](int i, float zt) {
+    const float rho = s_rho[i], y = s_y[i];
+    const float z_relax = alpha * zt + oma * s_z[i];
+    const float z_new = nan_min(nan_max(z_relax + y / rho, s_l[i]), s_u[i]);
+    const float y_new = y + rho * (z_relax - z_new);
+    s_z[i] = z_new;
+    s_y[i] = y_new;
+    s_v[i] = dual_v(rho, z_new, y_new);
+  };
+
+  // k iterations of this launch are done at the top of the loop.  The next
+  // iteration's first product is formed before the termination test of
+  // iteration k is read from the scratch (the two overlap); its results are
+  // written only once the test has said to go on.
+  for (int k = 0;; ++k) {
+    // ---- stage B, the product: x~ = Minv rhs and z~ = W rhs (fixed
+    // shape; registers) or x~ = Minv rhs (x~ into scratch)
+    float d = 0.0f;
+    if constexpr (kFixed) {
+      if (tid < NT + MT) d = reg_dot<NT>(w, s_rhs);
+    } else {
+      for (int j = tid; j < n; j += kThreads)
+        s_xt[j] = row_dot<0>(s_minv + j * ld, s_rhs, n);
     }
-    rp = warp_max(rp);
-    rd = warp_max(rd);
-    pn = warp_max(pn);
-    dn = warp_max(dn);
-    if ((tid & 31) == 0) {
-      const int w = tid >> 5;
-      s_red[0 * kWarps + w] = rp;
-      s_red[1 * kWarps + w] = rd;
-      s_red[2 * kWarps + w] = pn;
-      s_red[3 * kWarps + w] = dn;
+    // ---- the termination test of iteration k: block maxima of the warps'
+    // residuals and norms
+    if (k > 0) {
+      const int wl = tid & 31;
+      const float4 part =
+          wl < kWarps ? s_red[wl] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      r_prim = warp_absmax(part.x);
+      r_dual = warp_absmax(part.y);
+      prim_norm = warp_absmax(part.z);
+      dual_norm = warp_absmax(part.w);
+      const bool converged =
+          (r_prim < a.eps_abs + a.eps_rel * prim_norm) &&
+          (r_dual < a.eps_abs + a.eps_rel * dual_norm);
+      it += 1;
+      done = converged || (it >= a.max_iter);
     }
+    if (done || k >= a.n_iters) break;
+
+    // ---- stage B, the updates
+    if constexpr (kFixed) {
+      if (tid < NT)
+        s_x[tid] = alpha * d + oma * s_x[tid];
+      else if (tid < NT + MT)
+        update_z(tid - NT, d);
+      __syncthreads();
+    } else {
+      for (int j = tid; j < n; j += kThreads)
+        s_x[j] = alpha * s_xt[j] + oma * s_x[j];
+      __syncthreads();
+      for (int i = tid; i < m; i += kThreads)
+        update_z(i, row_dot<0>(s_A + i * ld, s_xt, n));
+      __syncthreads();
+    }
+
+    // ---- stage C and the warps' maxima of the residuals and norms
+    float rp = 0.0f, rd = 0.0f, pn = 0.0f, dn = 0.0f;
+    stage_c(rp, rd, pn, dn);
+    rp = warp_absmax(rp);
+    rd = warp_absmax(rd);
+    pn = warp_absmax(pn);
+    dn = warp_absmax(dn);
+    if ((tid & 31) == 0) s_red[tid >> 5] = make_float4(rp, rd, pn, dn);
     __syncthreads();
-    rp = s_red[0];
-    rd = s_red[kWarps];
-    pn = s_red[2 * kWarps];
-    dn = s_red[3 * kWarps];
-    for (int w = 1; w < kWarps; ++w) {
-      rp = nan_max(rp, s_red[0 * kWarps + w]);
-      rd = nan_max(rd, s_red[1 * kWarps + w]);
-      pn = nan_max(pn, s_red[2 * kWarps + w]);
-      dn = nan_max(dn, s_red[3 * kWarps + w]);
-    }
-    r_prim = rp;
-    r_dual = rd;
-    prim_norm = pn;
-    dual_norm = dn;
-    const bool converged = (rp < a.eps_abs + a.eps_rel * pn) &&
-                           (rd < a.eps_abs + a.eps_rel * dn);
-    it += 1;
-    done = converged || (it >= a.max_iter);
-    // s_red is written again only after the next iteration's barriers
+    // s_red is written again only after the next stage B's barrier, which
+    // every thread reaches after reading it
   }
 
   for (int j = tid; j < n; j += kThreads) a.x[on + j] = s_x[j];
@@ -290,16 +541,28 @@ __global__ void __launch_bounds__(kThreads) admm_kernel(AdmmArgs a) {
   }
 }
 
+template <int NT, int MT>
+int launch(const AdmmArgs& a, int batch, long long bytes,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_kernel<NT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  admm_kernel<NT, MT><<<(unsigned)batch, kThreads, (size_t)bytes, stream>>>(
+      a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one lane of an (n, m) QP needs.
 long long admm_shared_bytes(int n, int m) {
-  return 4LL * shared_words(n, m, n | 1);
+  return 4LL * shared_words(n, m);
 }
-
-// Enqueues one kernel on `stream`, one block per lane, and returns the
+// Enqueues one kernel on `stream`, one block per lane (the instantiation
+// compiled for n = 60, m = 118 at that shape, the run-time one otherwise), and returns the
 // first CUDA error (0 = launched).  Pointers are device pointers to
 // contiguous f32 (it: int32, done: one byte per lane); the caller checks
 // device, dtype, shape and contiguity.  A shape whose lane does not fit in
@@ -318,9 +581,6 @@ int admm_iterations(const void* P, const void* q, const void* A,
   if (batch <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
   const long long bytes = admm_shared_bytes(n, m);
   if (bytes > kMaxShared) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   AdmmArgs a;
   a.P = (const float*)P;
   a.q = (const float*)q;
@@ -352,7 +612,6 @@ int admm_iterations(const void* P, const void* q, const void* A,
   a.done = (unsigned char*)done;
   a.n = n;
   a.m = m;
-  a.ld = n | 1;
   a.sigma = sigma;
   a.alpha = alpha;
   a.one_minus_alpha = one_minus_alpha;
@@ -360,9 +619,9 @@ int admm_iterations(const void* P, const void* q, const void* A,
   a.eps_rel = eps_rel;
   a.max_iter = max_iter;
   a.n_iters = n_iters;
-  admm_kernel<<<(unsigned)batch, kThreads, (size_t)bytes,
-                (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_fixed(n, m) ? launch<kFixedN, kFixedM>(a, batch, bytes, s)
+                        : launch<0, 0>(a, batch, bytes, s);
 }
 
 const char* admm_error_string(int code) {

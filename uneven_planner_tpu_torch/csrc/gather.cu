@@ -27,6 +27,19 @@
 // (40 KB of occupancy, 1.8 MB per scenario of dedup cells) stay in the 50 MB
 // L2 across a launch, so the scattered reads are mostly L2 hits.  Nothing is
 // rounded: results equal the plain PyTorch versions bit for bit.
+//
+// K3 on a byte table that fits in shared memory (one byte per row, at most
+// kSmemTable bytes: the 40,000-byte occupancy table of the search) takes its
+// own kernel, gather_bytes_smem_kernel.  With one thread per output byte the
+// generic kernel spends a 32-byte L2 sector on every 1-byte table read and a
+// 1-byte store per index.  Here a persistent grid (as many blocks as fit on
+// the card at once) copies the table into each block's shared memory once,
+// then walks the indices in grid-stride steps: a thread loads 16 bytes of
+// indices (4 int32 or 2 int64), clips them, reads the table from shared
+// memory and writes its 4 (or 2) output bytes as one store, with kUnroll such
+// steps' loads in flight.  A scalar loop covers the head before the first
+// 16-byte-aligned index, the tail, and the whole range when the output would
+// be misaligned for the vector store (the caller says which).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +65,106 @@ __global__ void gather_rows_kernel(const T* __restrict__ table,
   const long long i = t / wv;
   const int w = (int)(t - i * wv);
   out[t] = table[clip_index(idx[i], n) * wv + w];
+}
+
+constexpr int kSmemTable = 48 * 1024;  // bytes of table the byte path takes
+constexpr int kUnroll = 4;
+
+// Four (int32) or two (int64) clipped table bytes packed in index order into
+// one little-endian word.
+__device__ __forceinline__ uint32_t pack_bytes(const uint8_t* t, int4 v,
+                                               long long n) {
+  return (uint32_t)t[clip_index(v.x, n)] |
+         ((uint32_t)t[clip_index(v.y, n)] << 8) |
+         ((uint32_t)t[clip_index(v.z, n)] << 16) |
+         ((uint32_t)t[clip_index(v.w, n)] << 24);
+}
+
+__device__ __forceinline__ uint16_t pack_bytes(const uint8_t* t, longlong2 v,
+                                               long long n) {
+  return (uint16_t)(t[clip_index(v.x, n)] |
+                    ((uint32_t)t[clip_index(v.y, n)] << 8));
+}
+
+template <typename IdxT> struct ByteVec;
+template <> struct ByteVec<int32_t> { using In = int4; using Out = uint32_t; };
+template <> struct ByteVec<int64_t> {
+  using In = longlong2;
+  using Out = uint16_t;
+};
+
+// out[i] = table[clip(idx[i])] for a byte table of n <= kSmemTable bytes.
+// Indices [0, head) and the tail after the last whole vector go one by one;
+// the vectors start at idx + head, which the caller found 16-byte aligned,
+// with out + head aligned to the vector's output word (head = m: no vector).
+template <typename IdxT>
+__global__ void __launch_bounds__(kThreads)
+    gather_bytes_smem_kernel(const uint8_t* __restrict__ table,
+                             const IdxT* __restrict__ idx,
+                             uint8_t* __restrict__ out, long long m, int n,
+                             long long head) {
+  using In = typename ByteVec<IdxT>::In;
+  using Out = typename ByteVec<IdxT>::Out;
+  constexpr int K = 16 / sizeof(IdxT);  // indices per vector
+  extern __shared__ __align__(16) uint8_t s_table[];
+  const int tid = threadIdx.x;
+  if ((reinterpret_cast<uintptr_t>(table) & 15) == 0) {
+    const int words = n / 16;
+    for (int w = tid; w < words; w += kThreads)
+      reinterpret_cast<uint4*>(s_table)[w] =
+          reinterpret_cast<const uint4*>(table)[w];
+    for (int b = words * 16 + tid; b < n; b += kThreads) s_table[b] = table[b];
+  } else {
+    for (int b = tid; b < n; b += kThreads) s_table[b] = table[b];
+  }
+  __syncthreads();
+
+  const long long g = blockIdx.x * (long long)kThreads + tid;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long nvec = (m - head) / K;
+  const long long tail = head + nvec * K;
+  for (long long i = g; i < head; i += stride)
+    out[i] = s_table[clip_index(idx[i], n)];
+  for (long long i = tail + g; i < m; i += stride)
+    out[i] = s_table[clip_index(idx[i], n)];
+
+  const In* vin = reinterpret_cast<const In*>(idx + head);
+  Out* vout = reinterpret_cast<Out*>(out + head);
+  long long v = g;
+  for (; v + (kUnroll - 1) * stride < nvec; v += kUnroll * stride) {
+    In r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) r[u] = __ldg(vin + v + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      vout[v + u * stride] = pack_bytes(s_table, r[u], n);
+  }
+  for (; v < nvec; v += stride) vout[v] = pack_bytes(s_table, vin[v], n);
+}
+
+template <typename IdxT>
+int launch_bytes_smem(const void* table, const void* idx, void* out,
+                      long long m, int n, long long head,
+                      cudaStream_t stream) {
+  const void* fn = (const void*)gather_bytes_smem_kernel<IdxT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      (size_t)n);
+  if (err != cudaSuccess) return (int)err;
+  // enough blocks to fill the card once, but no more than the work needs
+  const long long need = (m + 4LL * kThreads - 1) / (4LL * kThreads);
+  const long long fill = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = (unsigned)(need < fill ? need : fill);
+  gather_bytes_smem_kernel<IdxT><<<blocks, kThreads, (size_t)n, stream>>>(
+      (const uint8_t*)table, (const IdxT*)idx, (uint8_t*)out, m, n, head);
+  return (int)cudaGetLastError();
 }
 
 // out[r, c] = x[r * s_row + c * s_col + clip(idx[r, c]) * s_gather]:
@@ -114,6 +227,21 @@ int gather_rows(const void* table, const void* idx, void* out, long long m,
                  : launch_rows<uint8_t, int32_t>(table, idx, out, m, n, wv, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K3 on a byte table of n <= gather_smem_table_bytes() bytes, one byte per
+// row: idx [m] (int32, or int64 when idx64), out [m] bytes.  head is the
+// count of indices before idx + head is 16-byte aligned, with out + head
+// aligned to 4 bytes (int32) or 2 (int64); head = m sends every index
+// through the scalar loop.
+int gather_rows_bytes_smem(const void* table, const void* idx, void* out,
+                           long long m, int n, long long head, int idx64,
+                           void* stream) {
+  if (n <= 0 || n > kSmemTable || head < 0 || head > m)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return idx64 ? launch_bytes_smem<int64_t>(table, idx, out, m, n, head, s)
+               : launch_bytes_smem<int32_t>(table, idx, out, m, n, head, s);
 }
 
 // K4.  x holds 4-byte elements; idx and out are contiguous [rows, cols].

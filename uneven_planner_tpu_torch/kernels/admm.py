@@ -9,13 +9,15 @@ iterations of the loop body of the JAX package's `solve_qp`
 (`solver/admm_qp.py:295-348`, adaptive rho off) and freezes a lane once its
 termination test holds or its count reaches `max_iter`.  The kernel is one
 thread block per lane with the loop inside; the twin is the same arithmetic
-as batched tensor operations with a `done` mask.  The wrapper runs the twin
+as batched tensor operations with a `done` mask.  The kernel has two
+instantiations of one design, picked by shape: one compiled for the
+condensed tracking QP (n = 60, m = 118) and one for run-time sizes.  The wrapper runs the twin
 only for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel on PyTorch's current stream or raises, and never falls back.  The
 kernel is float32 only; float64 exists on the CPU path.  It keeps the lane's
 P, A and inverse in shared memory, so it serves shapes up to
 `shared_bytes(n, m) <= MAX_SHARED_BYTES` (the condensed tracking QP, n = 60,
-m = 118, takes 64,368 bytes; the largest condensed shape is n = 116,
+m = 118, takes 61,992 bytes; the largest condensed shape is n = 116,
 m = 230; the full QP, n = 150, m = 268, does not fit and is refused).  No
 gradient: nothing differentiates through the QP.
 
@@ -36,6 +38,9 @@ launches = {"admm_iterations": 0}
 # bytes of shared memory one thread block can have on sm_90
 MAX_SHARED_BYTES = 232448
 _WARPS = 8
+# (n, m) of the condensed tracking QP, for which the kernel is compiled
+# with its shape fixed (kFixedN, kFixedM of csrc/admm_qp.cu)
+FIXED_SHAPE = (60, 118)
 
 
 def reset_launches():
@@ -83,10 +88,12 @@ def initial_state(x, z, y) -> ADMMState:
 
 def shared_bytes(n: int, m: int) -> int:
     """Shared memory a lane of an (n, m) QP takes in the kernel: the three
-    matrices at an odd row stride, 8 n-vectors, 9 m-vectors and the
-    reduction scratch (`shared_words` of `csrc/admm_qp.cu`)."""
-    ld = n | 1
-    return 4 * (2 * n * ld + m * ld + 8 * n + 9 * m + 4 * _WARPS)
+    matrices and three n-vectors at the row stride (n words at the shape
+    the kernel is compiled for, n | 1 otherwise), three more n-vectors,
+    7 m-vectors and the reduction scratch (`shared_words` of
+    `csrc/admm_qp.cu`)."""
+    ld = n if (n, m) == FIXED_SHAPE else n | 1
+    return 4 * ((2 * n + m) * ld + 3 * ld + 3 * n + 7 * m + 4 * _WARPS)
 
 
 def _declare(lib):

@@ -9,7 +9,9 @@ Indices are clipped as `jnp.take(..., mode="clip")` clips them (PyTorch
 would wrap a negative index; the twins clamp first).  A wrapper runs its
 twin only for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel on PyTorch's current stream or raises, and never falls back.  The
-kernels take bool/uint8 and 4-byte tables (K3) and 4-byte elements (K4);
+kernels take bool/uint8 and 4-byte tables (K3; a byte table of at most
+SMEM_TABLE_BYTES rows is read from shared memory by a kernel of its own) and
+4-byte elements (K4);
 float64 exists on the CPU path only.  Neither has a gradient: the search
 that uses them is not differentiated.
 
@@ -28,6 +30,9 @@ from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 launches = {"gather_rows": 0, "gather_along": 0}
 
 _IDX_TYPES = (torch.int32, torch.int64)
+# the largest byte table K3 copies into shared memory (kSmemTable of
+# csrc/gather.cu); a larger one goes through the generic kernel
+SMEM_TABLE_BYTES = 48 * 1024
 
 
 def reset_launches():
@@ -39,6 +44,8 @@ def _declare(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gather_rows.argtypes = [p, p, p, ll, ll, i, i, i, p]
     lib.gather_rows.restype = i
+    lib.gather_rows_bytes_smem.argtypes = [p, p, p, ll, i, ll, i, p]
+    lib.gather_rows_bytes_smem.restype = i
     lib.gather_along.argtypes = [p, p, p, ll, i, ll, ll, ll, ll, i, p]
     lib.gather_along.restype = i
     lib.gather_error_string.argtypes = [i]
@@ -70,6 +77,25 @@ def gather_rows_twin(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long().clamp(0, table.shape[0] - 1)]
 
 
+def uses_shared_table(table: torch.Tensor) -> bool:
+    """Whether K3 reads `table` from shared memory: one byte per row and at
+    most SMEM_TABLE_BYTES rows (the occupancy table of the search)."""
+    return table.element_size() == 1 and table.numel() == table.shape[0] \
+        and table.shape[0] <= SMEM_TABLE_BYTES
+
+
+def _vector_head(idx: torch.Tensor, out: torch.Tensor) -> int:
+    """For the shared-table kernel: the indices before idx's first 16-byte
+    boundary, or M (all scalar) when the output bytes after them are not
+    aligned for one store per 16 bytes of indices."""
+    M, size = idx.shape[0], idx.element_size()
+    per_vec = 16 // size
+    head = (-(idx.data_ptr() // size)) % per_vec
+    if idx.data_ptr() % size or (out.data_ptr() + head) % per_vec:
+        return M
+    return min(head, M)
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K3: rows of `table` ([N] or [N, W], contiguous) at `idx` ([M] int32 or
     int64), clipped into the table: [M] or [M, W]."""
@@ -94,16 +120,22 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                       device=table.device)
     if M == 0:
         return out
-    row_bytes = elem * (table.shape[1] if table.dim() == 2 else 1)
-    word = elem
-    if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0 \
-            and out.data_ptr() % 16 == 0:
-        word = 16
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = lib.gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                          M, N, row_bytes, word,
-                          int(idx.dtype == torch.int64), stream)
+    idx64 = int(idx.dtype == torch.int64)
+    if uses_shared_table(table):
+        err = lib.gather_rows_bytes_smem(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
+            _vector_head(idx, out), idx64, stream)
+    else:
+        row_bytes = elem * (table.shape[1] if table.dim() == 2 else 1)
+        word = elem
+        if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0 \
+                and out.data_ptr() % 16 == 0:
+            word = 16
+        err = lib.gather_rows(table.data_ptr(), idx.data_ptr(),
+                              out.data_ptr(), M, N, row_bytes, word, idx64,
+                              stream)
     _raise_on(lib, err, "gather_rows")
     launches["gather_rows"] += 1
     return out
