@@ -19,7 +19,9 @@ Phases, each of which must pass (exit code 1 otherwise):
               path's, the pipeline's and the tracking path's, tanh_affine
               at the TPU probe's shape and at a large one, the ADMM loop on
               the QPs of a real tracking tick (256 lanes, warm-started) and
-              on random box QPs, with a split run held bit for bit;
+              on random box QPs, with a split run held bit for bit, and its
+              global-memory variant on the full QP of a real tick (n = 150,
+              m = 208; 256 lanes in fp32, 64 in fp64);
   4. small    8 lanes solved on the card (fp32, kernels) against the same
               lanes on the CPU (fp64, plain twins);
   5. headline the main path at full width: hill grid with its f16 table,
@@ -39,16 +41,22 @@ Phases, each of which must pass (exit code 1 otherwise):
               post-solve metrics, and a profile of one search;
   9. track-ref 4 lanes of figure-eight tracking, 40 ticks, on the card
               (fp32, ADMM kernel) against the CPU (fp32, plain twin);
- 10. mpc      the tracking MPC alone at full width: 256 lanes x 256 ticks
+ 10. track-full-ref  4 lanes x 40 ticks with the full QP
+              (qp_condense=False) on the card (fp32, K6's global variant)
+              against the CPU (fp64, plain twin), held by outcome;
+ 11. mpc      the tracking MPC alone at full width: 256 lanes x 256 ticks
               on the figure-eight; ticks/s, tracking error, QP iteration
               statistics, launch counts, and a profile of a few ticks;
- 11. pipeline the plan -> track path at full width: plan_track_batch on 64
+ 12. mpc-full the MPC with the full QP at full width: 256 lanes x 64 ticks
+              (depth cut), tracking error beside the condensed QP's over
+              the same ticks, QP iteration statistics, launch counts;
+ 13. pipeline the plan -> track path at full width: plan_track_batch on 64
               scenarios x 500 ticks; scenarios/s, planned-and-converged
               share, tracking error; then search, solve and tracking once
               more, each alone, for the split of the time.
 Prints the kernels' JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package beside
-it, it exits 2 and prints no result.  `--phases` names phases 3-11 by their
+it, it exits 2 and prints no result.  `--phases` names phases 3-13 by their
 short names (PHASES below; 6 runs with 5 and the plan's profile with 8): it
 runs the device and build steps and those phases, prints their lines and
 `# total`, and ends with {"partial": [...]} instead of the kernels' line
@@ -70,6 +78,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# fp64 FLOP/s, the card's peak for the type: through the tensor cores (NVIDIA
+# data sheet, H100 SXM; 34e12 outside them)
+PEAK_F64 = 67e12
 # Lookups per solver evaluation at the headline: 4096 lanes x 10 pieces x 9.
 M_HEADLINE = 4096 * 90
 # fp32 arithmetic per lookup, counted from the kernel source (index math,
@@ -95,6 +106,17 @@ TOL_TANH_ABS = 5e-7
 # residual first dips under its limit depends on the last bits) the
 # solutions within TOL_ADMM_REL_STOPPED and the counts only printed.
 TOL_ADMM_REL = 5e-5
+# the global variant against its twin at a fixed count on the full QP of a
+# real tick.  float64: rounding of two summation orders over 400
+# iterations.  float32: on that QP each float32 order of summation strays up
+# to 1.2e-4 from the float64 iterate in y, so TOL_ADMM_REL cannot hold.  The
+# limit is twice the largest of 16 readings of the kernel against the twin
+# (1.22e-4: 4 seeds x 4 ticks, `chip_studies/k6_global_tolerance.py`, on an
+# H100 80GB HBM3, 700 W), and 186 times below the nearest lower-precision
+# control (P, A and the inverse rounded to TF32: 0.046), which
+# `admm_global_rows` checks on every run.
+TOL_ADMM_REL_F64 = 1e-10
+TOL_ADMM_REL_GLOBAL_F32 = 2.5e-4
 TOL_ADMM_REL_STOPPED = 1e-3
 ADMM_LOOSE_EPS = 1e-4
 MIN_EQUAL_ITERS_SHARE = 0.7
@@ -102,12 +124,19 @@ MAX_ITERS_DIFF = 1
 # fp32 arithmetic of one tanh_affine element (tanhf counted as 20 operations)
 OPS_TANH = 22
 MPC_LANES, MPC_TICKS = 256, 256
+# the full tracking QP (n = 150, m = 208): the MPC alone at full width, its
+# depth cut to 64 ticks to keep the script's time; f64 rows of K6 at 64 lanes
+MPC_FULL_TICKS = 64
+ADMM_F64_LANES = 64
 PIPE_LANES, PIPE_TICKS = 64, 500
 MAX_TRACK_ERR = 0.05      # metres, mean over a lane's pre-goal ticks
+# the full and the condensed QP share one optimum: their tracking errors
+# over the same ticks may differ by at most this (metres)
+MAX_FULL_VS_CONDENSED_ERR = 0.002
 # phase names for --phases, in the order a full run takes them
 PHASES = ("terrain", "gather", "tanh", "admm", "small-reference",
-          "headline", "plan-reference", "plan", "track-reference", "mpc",
-          "pipeline")
+          "headline", "plan-reference", "plan", "track-reference",
+          "track-full-ref", "mpc", "mpc-full", "pipeline")
 
 
 def log(*a):
@@ -277,7 +306,9 @@ def phase_kernels(grid):
     shape and mode of `terrain_cases`; times."""
     from uneven_planner_tpu_torch.kernels import terrain_lookup as kernels
     from uneven_planner_tpu_torch.terrain import grid as tgrid
+    import torch
     geom = tgrid.kernel_geometry(grid)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     variants = []
     for path, M, name, exact, want_jac in terrain_cases():
         px, py, yaw = smoke_poses(grid, M, seed=1)
@@ -296,13 +327,18 @@ def phase_kernels(grid):
         e_tv = _err(got[0], want[0], *TOL["tv"])
         e_j = _err(got[1], want[1], *TOL["jac"]) if want_jac else (0.0, 0,
                                                                      True)
+        equal = torch.equal(got[0], want[0]) and (
+            not want_jac or torch.equal(got[1], want[1]))
         del got, want
         ms = device_ms(kern)
         plain_ms = device_ms(twin)
         nbytes = M * (12 + 32 * rows + 28 + (84 if want_jac else 0))
         bound_s = max(nbytes / PEAK_BYTES, M * OPS[name] / PEAK_F32)
         v = dict(name=name, path=path, exact=exact, want_jac=want_jac, M=M,
-                 max_abs_err_tv=e_tv[0], max_abs_err_jac=e_j[0],
+                 layout=(kernels.packed16_layout(M, sms)
+                         if name == "terrain_tv_packed16"
+                         else "thread per sample"),
+                 equal=equal, max_abs_err_tv=e_tv[0], max_abs_err_jac=e_j[0],
                  n_out_of_tol=e_tv[1] + e_j[1], finite=e_tv[2] and e_j[2],
                  ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
                  bound_by=("bytes" if nbytes / PEAK_BYTES
@@ -310,7 +346,10 @@ def phase_kernels(grid):
                  bytes=nbytes)
         log("# kernel " + json.dumps(v))
         variants.append(v)
-    bad = [v for v in variants if v["n_out_of_tol"] or not v["finite"]]
+    # K1 is held bit for bit (its redesign keeps every operation of every
+    # sample), K2 to the tolerances
+    bad = [v for v in variants if v["n_out_of_tol"] or not v["finite"]
+           or (v["name"] == "terrain_tv_packed16" and not v["equal"])]
     if bad:
         raise RuntimeError(f"kernel disagrees with its twin: {bad}")
     return variants
@@ -849,7 +888,7 @@ def phase_plan_profile(ctx):
                    name: dict(device_ms=sum(u for u, k, _ in rows
                                             if name in k) / 1e3,
                               calls=sum(c for _, k, c in rows if name in k))
-                   for name in ("tv_packed16_kernel", "gather_rows_kernel",
+                   for name in ("tv_packed16_", "gather_rows_kernel",
                                 "gather_bytes_smem_kernel",
                                 "gather_along_kernel")},
                top=[dict(kernel=k[:80], device_ms=u / 1e3, calls=c)
@@ -991,6 +1030,192 @@ def _random_box_qps(device, lanes=MPC_LANES, n=60, m=118, seed=17):
                           np.abs(rng.normal(size=(lanes, m))) + 0.1)))
 
 
+def _tick_qps_full(device, lanes=MPC_LANES, warm_ticks=12, seed=31):
+    """The first QP pass of a real tracking tick with the full QP (n = 150,
+    m = 208): `lanes` controllers on the figure-eight from start states
+    drawn with `seed`, run for `warm_ticks` ticks with
+    `MPCConfig(qp_condense=False)`, then the next tick's first
+    relinearisation pass assembled as `mpc_step` assembles it (primal warm
+    start from the nonlinear rollout and the inputs, zero duals), float32.
+    Returns (unscaled QP, x0, y0, cfg)."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.minco.traj import expand_traj
+    from uneven_planner_tpu_torch.mpc import tracker, traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    cfg = MPCConfig(qp_condense=False)
+    f8 = expand_traj(traj_msg.figure_eight(0.5, dtype=torch.float32,
+                                           device=device), lanes)
+    s0 = torch.as_tensor(_f8_starts(lanes, np.random.default_rng(seed)),
+                         device=device)
+    s = rollout.roll_init(s0, cfg)
+    for _ in range(warm_ticks):
+        s, _, _ = rollout.tick(f8, s, cfg, 0.01, 3, None)
+    refs, _ = tracker.get_ref_points(f8, s.t, cfg)
+    refs = tracker.smooth_yaw(refs, s.state[:, 2])
+    d = cfg.delay_num
+    xbar = tracker.predict_motion(s.state, s.output, cfg)
+    qp = tracker.assemble_qp(xbar, s.output, refs, torch.zeros_like(
+        refs[:, :2]), cfg)
+    x0 = torch.cat([xbar[:, d + 1:].reshape(lanes, -1),
+                    s.output[:, :, d:].transpose(1, 2).reshape(lanes, -1)],
+                   dim=1)
+    y0 = torch.zeros_like(qp[3])
+    return tuple(a.contiguous() for a in qp), x0, y0, cfg
+
+
+def _rel(a, b):
+    """Largest |a - b| of a lane relative to the lane's largest |b|."""
+    scale = b.abs().amax(-1, keepdim=True).clamp(min=1e-3)
+    return float(((a - b).abs() / scale).max())
+
+
+def _round_mantissa(t, bits):
+    """float32 `t` rounded to `bits` explicit mantissa bits (10: TF32,
+    7: bfloat16), kept in float32."""
+    import torch
+    drop = 23 - bits
+    i = t.contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def global_f32_readings(d, st, n_iters, kw):
+    """K6's global kernel in float32 against the twin over `n_iters`
+    iterations with the termination test off (`kw`), and the readings its
+    gate was set from: kernel and twin each against the twin run in
+    float64 on the same data, and two controls in lower precision, the
+    twin with P, A and the inverse rounded to TF32's and to bfloat16's
+    mantissa, each against the twin.  Distances relative to the lane's
+    largest entry; a control's is the larger of x's and y's."""
+    import torch
+    from uneven_planner_tpu_torch.kernels import admm
+    got = admm.launch_variant("global", d, st, n_iters=n_iters, **kw)
+    want = admm.admm_iterations_twin(d, st, n_iters=n_iters, **kw)
+    cast = lambda t, f: f(t) if t.is_floating_point() else t
+    ref = admm.admm_iterations_twin(
+        type(d)(*[cast(a, torch.Tensor.double) for a in d]),
+        type(st)(*[cast(a, torch.Tensor.double) for a in st]),
+        n_iters=n_iters, **kw)
+    out = dict(max_rel_err_x=_rel(got.x, want.x),
+               max_rel_err_y=_rel(got.y, want.y),
+               iters_differ=int((got.it != want.it).sum()),
+               max_abs_err=float(max((got.x - want.x).abs().max(),
+                                     (got.y - want.y).abs().max())))
+    for who, r in (("kernel", got), ("twin", want)):
+        out[f"{who}_vs_f64_rel_x"] = _rel(r.x.double(), ref.x)
+        out[f"{who}_vs_f64_rel_y"] = _rel(r.y.double(), ref.y)
+    for name, bits in (("tf32", 10), ("bf16", 7)):
+        low = admm.admm_iterations_twin(
+            d._replace(P=_round_mantissa(d.P, bits),
+                       A=_round_mantissa(d.A, bits),
+                       minv=_round_mantissa(d.minv, bits)),
+            st, n_iters=n_iters, **kw)
+        out[f"{name}_control_rel"] = max(_rel(low.x, want.x),
+                                         _rel(low.y, want.y))
+    return out
+
+
+def admm_global_rows(device):
+    """K6's global variant against its twin on the full QP of a real tick:
+    256 lanes in float32 and the first 64 of them in float64, over a fixed
+    count of iterations (no termination test), every lane at that count,
+    and 25 + 375 iterations equal to 400 bit for bit.  x and y within
+    TOL_ADMM_REL_GLOBAL_F32 (float32) or TOL_ADMM_REL_F64 (float64) of the
+    twin; in float32 the two lower-precision controls of
+    `global_f32_readings` must lie beyond that limit, or the gate could not
+    tell a kernel that lost precision.  Times: the kernel and the twin (one
+    captured graph) on the path's run, beside the bound for the iterations
+    this data needs and the time its P and A take to stream from device
+    memory once an iteration."""
+    import torch
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.solver import admm_qp
+    qp, x0, y0, cfg = _tick_qps_full(device)
+    n64 = ADMM_F64_LANES
+    cases = [(torch.float32, TOL_ADMM_REL_GLOBAL_F32, qp, x0, y0),
+             (torch.float64, TOL_ADMM_REL_F64,
+              tuple(a[:n64].double() for a in qp), x0[:n64].double(),
+              y0[:n64].double())]
+    path_kw = dict(sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
+                   eps_abs=cfg.qp_abs_tol, eps_rel=cfg.qp_rel_tol,
+                   max_iter=cfg.qp_max_iter)
+    budget = cfg.qp_scan_iters
+
+    rows = []
+    for dtype, tol, q, xw, yw in cases:
+        setup = admm_qp.setup_qp(*q, rho=cfg.qp_rho, sigma=cfg.qp_sigma,
+                                 x0=xw, y0=yw)
+        d, st = setup.data, setup.state
+        B, n, m = d.P.shape[0], d.P.shape[1], d.A.shape[1]
+        fixed_kw = dict(path_kw, eps_abs=0.0, eps_rel=0.0)
+        if dtype == torch.float32:
+            fixed = global_f32_readings(d, st, budget, fixed_kw)
+        else:
+            got = admm.admm_iterations(d, st, n_iters=budget, **fixed_kw)
+            want = admm.admm_iterations_twin(d, st, n_iters=budget,
+                                             **fixed_kw)
+            fixed = dict(max_rel_err_x=_rel(got.x, want.x),
+                         max_rel_err_y=_rel(got.y, want.y),
+                         iters_differ=int((got.it != want.it).sum()),
+                         max_abs_err=float(max((got.x - want.x).abs().max(),
+                                               (got.y - want.y).abs().max())))
+        torch.cuda.synchronize()
+        run = admm.admm_iterations(d, st, n_iters=budget, **path_kw)
+        part = admm.admm_iterations(d, st, n_iters=25, **path_kw)
+        part = admm.admm_iterations(d, part, n_iters=budget - 25, **path_kw)
+        torch.cuda.synchronize()
+        split_equal = all(torch.equal(a, b) for a, b in zip(run, part))
+        its = run.it.long()
+        elt = d.P.element_size()
+        flops = float(its.sum()) * 2 * (4 * m * n + 2 * n * n)
+        nbytes = elt * B * (2 * n * n + m * n + 2 * n + 4 * m + 1
+                            + 2 * (n + 2 * m + 6))
+        streamed = elt * float(its.sum()) * (2 * m * n + n * n)
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_F64
+        kern = lambda: admm.admm_iterations(d, st, n_iters=budget, **path_kw)
+        twin = lambda: admm.admm_iterations_twin(d, st, n_iters=budget,
+                                                 **path_kw)
+        v = dict(
+            name="admm_iterations_global", variant=admm.variant(n, m, dtype),
+            dtype=str(dtype).replace("torch.", ""),
+            shape=f"full-QP tick pass 1 (x warm, y = 0): {B} lanes, n = {n}, "
+            f"m = {m}, {str(dtype).replace('torch.', '')}, budget {budget}",
+            max_abs_err=fixed["max_abs_err"],
+            fixed_count=fixed, tolerance_rel=tol, split_equal=split_equal,
+            iters_mean=float(its.float().mean()), iters_max=int(its.max()),
+            at_budget_share=float((its >= budget).float().mean()),
+            finite=bool(torch.isfinite(run.x).all()),
+            ms=device_ms(kern, reps=5, inner=2),
+            plain_ms=device_ms(twin, reps=3, inner=1), library_ms=None,
+            bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+            bound_by=("operations" if flops / peak >= nbytes / PEAK_BYTES
+                      else "bytes"),
+            streamed_bytes_ms=streamed / PEAK_BYTES * 1e3,
+            flops=flops, bytes=nbytes, streamed_bytes=streamed,
+            shared_bytes_per_lane=admm.global_shared_bytes(n, m, dtype)[0],
+            minv_in_shared_memory=admm.global_shared_bytes(n, m, dtype)[1])
+        log("# kernel " + json.dumps(v))
+        rows.append(v)
+
+    def strays(v):
+        f, tol = v["fixed_count"], v["tolerance_rel"]
+        # NaN fails the gate; a NaN control lies beyond it
+        return (not max(f["max_rel_err_x"], f["max_rel_err_y"]) <= tol
+                or any(f.get(f"{c}_control_rel", tol + 1) <= tol
+                       for c in ("tf32", "bf16")))
+
+    bad = [v for v in rows
+           if v["variant"] != "global" or strays(v)
+           or v["fixed_count"]["iters_differ"] or not v["split_equal"]
+           or not v["finite"]]
+    if bad:
+        raise RuntimeError(f"admm_iterations (global) disagrees with its "
+                           f"twin, or its gate cannot tell a lower "
+                           f"precision: {bad}")
+    return rows
+
+
 def phase_admm_kernel(device):
     """K6 against its twin on the same CUDA tensors: the QPs of a real
     tracking tick (256 lanes) and random SPD box QPs of the same shape,
@@ -1015,10 +1240,6 @@ def phase_admm_kernel(device):
                    max_iter=cfg.qp_max_iter)
     budget = cfg.qp_scan_iters
 
-    def rel(a, b):
-        scale = b.abs().amax(-1, keepdim=True).clamp(min=1e-3)
-        return float(((a - b).abs() / scale).max())
-
     variants = []
     for label, qp, x0, y0 in cases:
         setup = admm_qp.setup_qp(*qp, rho=cfg.qp_rho, sigma=cfg.qp_sigma,
@@ -1032,8 +1253,8 @@ def phase_admm_kernel(device):
             want = admm.admm_iterations_twin(d, s, n_iters=budget, **kw)
             torch.cuda.synchronize()
             return got, want, dict(
-                max_rel_err_x=rel(got.x, want.x),
-                max_rel_err_y=rel(got.y, want.y),
+                max_rel_err_x=_rel(got.x, want.x),
+                max_rel_err_y=_rel(got.y, want.y),
                 iters_equal_share=float((got.it == want.it).float().mean()),
                 iters_differ=int((got.it != want.it).sum()),
                 iters_max_diff=int((got.it - want.it).abs().max()),
@@ -1109,7 +1330,7 @@ def phase_admm_kernel(device):
            or v["kkt"]["kernel"]["prim"] > 2 * v["kkt"]["twin"]["prim"] + 1e-5]
     if bad:
         raise RuntimeError(f"admm_iterations disagrees with its twin: {bad}")
-    return variants
+    return variants + admm_global_rows(device)
 
 
 # ---------------------------------------------------------------------------
@@ -1180,6 +1401,49 @@ def phase_track_reference(device):
     if not torch.isfinite(card.states).all() \
             or out["max_state_diff"] > 2e-3 or out["max_cmd_diff"] > 2e-2:
         raise RuntimeError(f"card tracking disagrees with the CPU: {out}")
+    return out
+
+
+def phase_track_full_reference(device):
+    """4 lanes of figure-eight tracking with the full QP
+    (`MPCConfig(qp_condense=False)`), 40 ticks: card (fp32, K6's global
+    variant) against CPU (fp64, plain twin), held by outcome as the
+    condensed run is: states within 2e-3 (m, rad), commands within 2e-2."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.mpc import traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    cfg = MPCConfig(qp_condense=False)
+    s0 = _f8_starts(4, np.random.default_rng(41))
+    run = lambda dev, dtype: rollout.track_trajectory_batched(
+        traj_msg.figure_eight(0.5, dtype=dtype, device=dev), s0, cfg, 40,
+        device=dev)
+    reset_all_launches()
+    card = run(device, torch.float32)
+    launches = all_launches()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu = run("cpu", torch.float64)
+    finally:
+        torch.set_num_threads(threads)
+    out = dict(lanes=4, ticks=40, qp="full (n = 150, m = 208)",
+               max_state_diff=float((card.states.cpu().double()
+                                     - cpu.states).abs().max()),
+               max_cmd_diff=float((card.cmds.cpu().double() - cpu.cmds)
+                                  .abs().max()),
+               mean_err_card=card.mean_err.tolist(),
+               mean_err_cpu=cpu.mean_err.tolist(),
+               qp_iters_card=int(card.qp_iters.sum()),
+               qp_iters_cpu=int(cpu.qp_iters.sum()),
+               admm_global_launches=launches["admm_iterations_global"])
+    log("# track-full-ref " + json.dumps(out))
+    if not torch.isfinite(card.states).all() \
+            or out["max_state_diff"] > 2e-3 or out["max_cmd_diff"] > 2e-2 \
+            or out["admm_global_launches"] == 0:
+        raise RuntimeError(f"card full-QP tracking disagrees with the CPU: "
+                           f"{out}")
     return out
 
 
@@ -1265,6 +1529,73 @@ def phase_mpc(device, smi):
     for name in ("gather_rows", "gather_along"):
         if launches[name] == 0:
             fails.append(f"{name} was never launched on the tracking path")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
+
+
+def phase_mpc_full(device, smi):
+    """The tracking MPC with the full QP at full width: figure_eight shared
+    by 256 lanes with the MPC phase's start states, 64 ticks (depth cut
+    from 256), 3 relinearisations, `MPCConfig(qp_condense=False)`, fp32:
+    every QP goes through K6's global variant.  The condensed QP runs the
+    same ticks from the same states beside it: the two QPs share one
+    optimum, so the tracking errors must agree within
+    MAX_FULL_VS_CONDENSED_ERR."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import scene_config
+    from uneven_planner_tpu_torch.mpc import traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    scfg = scene_config("hill")
+    cfg = dataclasses.replace(scfg.mpc, qp_condense=False)
+    rng = np.random.default_rng(2)
+    f8 = traj_msg.figure_eight(scfg.alm.max_vel, dtype=torch.float32,
+                               device=device)
+    rollout.track_trajectory_batched(f8, _f8_starts(MPC_LANES, rng), cfg, 2)
+    s0 = _f8_starts(MPC_LANES, rng)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tres = rollout.track_trajectory_batched(f8, s0, cfg, MPC_FULL_TICKS,
+                                            max_sqp_iter=3)
+    mean_err = tres.mean_err.cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    cond = rollout.track_trajectory_batched(f8, s0, scfg.mpc, MPC_FULL_TICKS,
+                                            max_sqp_iter=3)
+    cond_err = float(cond.mean_err.mean())
+    out = dict(
+        lanes=MPC_LANES, ticks=MPC_FULL_TICKS, card=smi,
+        qp="full (n = 150, m = 208)",
+        ticks_per_s=MPC_LANES * MPC_FULL_TICKS / dt, wall_s=dt,
+        ms_per_tick=dt / MPC_FULL_TICKS * 1e3,
+        mean_track_err=float(mean_err.mean()),
+        max_lane_track_err=float(mean_err.max()),
+        condensed_mean_track_err_same_ticks=cond_err,
+        full_minus_condensed_err=float(mean_err.mean()) - cond_err,
+        **qp_statistics(tres), launches=launches,
+        finite=bool(torch.isfinite(tres.states).all()
+                    and torch.isfinite(tres.cmds).all()),
+        states_shape=list(tres.states.shape))
+    log("# mpc-full " + json.dumps(out))
+    fails = []
+    if not out["finite"] \
+            or out["states_shape"] != [MPC_LANES, MPC_FULL_TICKS, 3]:
+        fails.append("non-finite or misshapen states")
+    if not out["mean_track_err"] <= MAX_TRACK_ERR:
+        fails.append(f"mean tracking error {out['mean_track_err']:.4f} m "
+                     f"exceeds {MAX_TRACK_ERR}")
+    if not abs(out["full_minus_condensed_err"]) <= MAX_FULL_VS_CONDENSED_ERR:
+        fails.append("full and condensed QP track apart by "
+                     f"{out['full_minus_condensed_err']:.4f} m")
+    if launches["admm_iterations_global"] \
+            != int(tres.sqp_iters.max(0).values.sum()):
+        fails.append("K6 global launches != relinearisation passes run")
+    if launches["admm_iterations"] != launches["admm_iterations_global"]:
+        fails.append("a shared-memory K6 ran on the full QP")
     if fails:
         raise RuntimeError("; ".join(fails))
     return out
@@ -1364,8 +1695,9 @@ def kernel_entries(r):
     by phase name."""
     variants, gathers, admms = r["terrain"], r["gather"], r["admm"]
     tanhs, probe_a = r["tanh"]
-    head, plan, mpc, pipe = (r[k] for k in ("headline", "plan", "mpc",
-                                             "pipeline"))
+    head, plan, mpc, pipe, mpc_full, track_full = (
+        r[k] for k in ("headline", "plan", "mpc", "pipeline", "mpc-full",
+                       "track-full-ref"))
     # each kernel at the shape and mode its main path gives it: K1 hi-only
     # with J (every solver evaluation) and K2 with J (init_scaling) on the
     # headline path, with their variants on the planning path and the
@@ -1441,7 +1773,9 @@ def kernel_entries(r):
         large=dict(shape=big["shape"], max_abs_err=big["max_abs_err"],
                    ms=big["ms"], plain_ms=big["plain_ms"],
                    bound_ms=big["bound_ms"], bound_by=big["bound_by"])))
-    v = admms[0]
+    shared_rows = [w for w in admms if w["name"] == "admm_iterations"]
+    global_rows = [w for w in admms if w["name"] == "admm_iterations_global"]
+    v = shared_rows[0]
     entries.append(dict(
         name="admm_iterations", route="cuda",
         source="uneven_planner_tpu_torch/csrc/admm_qp.cu",
@@ -1463,7 +1797,30 @@ def kernel_entries(r):
                            plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
                            fixed_count=w["fixed_count"],
                            loose_test=w["loose_test"])
-                      for w in admms[1:]]))
+                      for w in shared_rows[1:]]))
+    # K6's global variant on the full QP of a real tick: float32 at 256
+    # lanes, with its launches on the full-QP MPC run; float64 beside it
+    v, f64 = global_rows
+    entries.append(dict(
+        name="admm_iterations_global", route="cuda",
+        source="uneven_planner_tpu_torch/csrc/admm_qp.cu",
+        replaces="uneven_planner_tpu/solver/admm_qp.py:295",
+        launches=mpc_full["launches"]["admm_iterations_global"],
+        launches_track_full_ref=track_full["admm_global_launches"],
+        max_abs_err=v["max_abs_err"], fixed_count=v["fixed_count"],
+        tolerance=dict(rel=v["tolerance_rel"],
+                       rel_float64=f64["tolerance_rel"]),
+        split_equal=v["split_equal"], ms=v["ms"], plain_ms=v["plain_ms"],
+        bound_ms=v["bound_ms"], bound_by=v["bound_by"],
+        streamed_bytes_ms=v["streamed_bytes_ms"], library_ms=None,
+        shape=v["shape"], iters_mean=v["iters_mean"],
+        float64=dict(shape=f64["shape"], max_abs_err=f64["max_abs_err"],
+                     fixed_count=f64["fixed_count"],
+                     tolerance_rel=f64["tolerance_rel"],
+                     split_equal=f64["split_equal"], ms=f64["ms"],
+                     plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
+                     bound_by=f64["bound_by"],
+                     streamed_bytes_ms=f64["streamed_bytes_ms"])))
     for e in entries[:4]:
         e["launches_pipeline"] = pipe["launches"][e["name"]]
     return entries
@@ -1541,7 +1898,9 @@ def main(argv=None) -> int:
         "plan-reference": lambda: phase_plan_reference(dev),
         "plan": plan_and_profile,
         "track-reference": lambda: phase_track_reference(dev),
+        "track-full-ref": lambda: phase_track_full_reference(dev),
         "mpc": lambda: phase_mpc(dev, smi),
+        "mpc-full": lambda: phase_mpc_full(dev, smi),
         "pipeline": lambda: phase_pipeline(dev, smi),
     }
     r = {}

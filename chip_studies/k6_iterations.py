@@ -34,8 +34,13 @@ def unfused(src: str) -> str:
                   src)
 
 
-def build_variants(sources: dict, out_dir: str) -> dict:
+def build_variants(sources: dict, out_dir: str, declare=None,
+                   logs=None) -> dict:
+    """Compile each named CUDA source with the package's flags, all at once,
+    and load it with `declare` (K6's argument types by default); the
+    compilers' output goes into `logs` by name where one is given."""
     from uneven_planner_tpu_torch.kernels import admm, build
+    declare = declare or admm._declare
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, src in sources.items():
@@ -50,8 +55,10 @@ def build_variants(sources: dict, out_dir: str) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        if logs is not None:
+            logs[name] = log
         lib = ctypes.CDLL(so)
-        admm._declare(lib)
+        declare(lib)
         libs[name] = lib
     return libs
 

@@ -26,14 +26,15 @@ def _chip_smoke():
 def test_phases_default_is_every_phase():
     cs = _chip_smoke()
     assert cs.parse_phases([]) == list(cs.PHASES)
-    assert len(cs.PHASES) == 11 and len(set(cs.PHASES)) == 11
+    assert len(cs.PHASES) == 13 and len(set(cs.PHASES)) == 13
 
 
 @pytest.mark.parametrize("arg,want", [
     ("admm", ["admm"]),
     ("admm,gather", ["gather", "admm"]),          # the script's order
     (" mpc , terrain ,mpc", ["terrain", "mpc"]),
-    ("pipeline,small-reference", ["small-reference", "pipeline"])])
+    ("pipeline,small-reference", ["small-reference", "pipeline"]),
+    ("mpc-full,track-full-ref,mpc", ["track-full-ref", "mpc", "mpc-full"])])
 def test_phases_subset(arg, want):
     assert _chip_smoke().parse_phases(["--phases", arg]) == want
 

@@ -6,6 +6,8 @@ installed:
     python -m pytest tests/test_torch_kernels.py -m cuda
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -68,6 +70,41 @@ def test_kernel_matches_twin_on_card(cuda_grid, mode, want_jac):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 255, 5760, 43520, 100003])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("want_jac", [False, True])
+def test_packed16_kernel_equals_twin_bit_for_bit_on_card(cuda_grid, M, exact,
+                                                         want_jac):
+    """K1 equals its twin bit for bit in the instantiation its wrapper picks
+    and in every other one: both layouts, each with 32- and 64-bit index
+    math (the wrapper takes 64 bits only for tables of 2^31 16-byte words
+    or more, which no test can hold), at sizes below one wave of the card,
+    at sizes that are no multiple of a block, and beyond the quads'
+    range."""
+    g = cuda_grid
+    px, py, yaw = (t[:M].contiguous() for t in _poses(max(M, 256), 9,
+                                                       g.device))
+    geom = tgrid.kernel_geometry(g)
+    want = tgrid.packed16_tv_jac(g, px, py, yaw, exact, want_jac)
+    runs = {"picked": lambda: kernels.terrain_tv_packed16(
+        g.data_packed16, geom, px, py, yaw, exact, want_jac)}
+    for layout in kernels.LAYOUTS:
+        for idx32 in (True, False):
+            runs[(layout, idx32)] = (
+                lambda layout=layout, idx32=idx32: kernels._launch_packed16(
+                    g.data_packed16, geom, px, py, yaw, exact, want_jac,
+                    layout=layout, idx32=idx32))
+    for which, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), which
+        if want_jac:
+            assert torch.equal(got[1], want[1]), which
+        else:
+            assert got[1] is None
+
+
+@pytest.mark.cuda
 def test_autograd_on_card_goes_through_kernel(cuda_grid):
     """Reverse and forward mode on CUDA tensors launch the kernel (once per
     forward) and agree with the twin's J."""
@@ -91,6 +128,20 @@ def test_launcher_rejects_float64_on_card(cuda_grid):
     with pytest.raises(TypeError):
         kernels.terrain_tv_pair(g.data_pair, tgrid.kernel_geometry(g), x, x,
                                 x, False)
+
+
+def test_packed16_index_width_and_layout_choice():
+    """K1's instantiation, decided before the launch: 32-bit index math for
+    every table of fewer than 2^31 16-byte words, a quad of lanes per
+    sample while a thread per sample would give some SM no block."""
+    assert kernels.index_bits(4 * 200 * 200 * 64) == 32      # the hill map
+    assert kernels.index_bits(2 ** 31 - 1) == 32
+    assert kernels.index_bits(2 ** 31) == 64
+    for M in (1, 255, 5760, 132 * 128):
+        assert kernels.packed16_layout(M, 132) == "quad"
+    for M in (132 * 128 + 1, 43520, 368640, 2621440):
+        assert kernels.packed16_layout(M, 132) == "thread"
+    assert kernels.packed16_layout(43520, 400) == "quad"
 
 
 # ---------------------------------------------------------------------------
@@ -400,8 +451,30 @@ def test_admm_kernel_is_resumable_bit_for_bit_on_card(card):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(60, 118), (8, 12), (116, 230),
+                                 (150, 208), (150, 268)])
+def test_admm_variant_is_chosen_by_shape_and_dtype(n, m, dtype):
+    """Which instantiation of K6 serves a QP, decided before any launch:
+    float32 QPs that fit in shared memory keep the shared-memory kernels
+    (the compiled shape its own), the full tracking QP and every float64 QP
+    take the global one."""
+    from uneven_planner_tpu_torch.kernels import admm
+    f32 = {(60, 118): "fixed", (8, 12): "runtime", (116, 230): "runtime",
+           (150, 208): "global", (150, 268): "global"}
+    want = f32[(n, m)] if dtype == torch.float32 else "global"
+    assert admm.variant(n, m, dtype) == want
+    nbytes, resident = admm.global_shared_bytes(n, m, dtype)
+    assert resident and 0 < nbytes <= admm.MAX_SHARED_BYTES
+    with pytest.raises(TypeError):
+        admm.variant(n, m, torch.float16)
+
+
 @pytest.mark.cuda
 def test_admm_kernel_rejects_what_it_does_not_take_on_card(card):
+    """Mixed dtypes, a wrong layout and a CPU tensor raise; the full
+    tracking QP (n = 150, m = 208) and float64 are served, by the global
+    variant, and counted."""
     from uneven_planner_tpu_torch.kernels import admm
     d, s = _admm_case(2, 8, 12, seed=0, device=card)
     with pytest.raises(TypeError):
@@ -413,15 +486,76 @@ def test_admm_kernel_rejects_what_it_does_not_take_on_card(card):
     with pytest.raises(ValueError):
         admm.admm_iterations(d, s._replace(x=s.x.cpu()), n_iters=1,
                              **ADMM_KW)
-    # the full tracking QP (n = 150, m = 268) does not fit in shared memory
-    assert admm.shared_bytes(150, 268) > admm.MAX_SHARED_BYTES
-    for n, m in ((60, 118), (8, 12), (116, 230), (150, 268)):
-        assert int(admm.LIBRARY.load().admm_shared_bytes(n, m)) \
-            == admm.shared_bytes(n, m)
+    with pytest.raises(ValueError):   # (8, 12) is not the compiled shape
+        admm.launch_variant("fixed", d, s, n_iters=1, **ADMM_KW)
+    lib = admm.LIBRARY.load()
+    for n, m in ((60, 118), (8, 12), (116, 230), (150, 208), (150, 268)):
+        assert int(lib.admm_shared_bytes(n, m)) == admm.shared_bytes(n, m)
+        for dtype in (torch.float32, torch.float64):
+            res = ctypes.c_int(-1)
+            got = int(lib.admm_global_shared_bytes(
+                n, m, int(dtype == torch.float64), ctypes.byref(res)))
+            assert (got, bool(res.value)) == admm.global_shared_bytes(
+                n, m, dtype)
     assert admm.shared_bytes(60, 118) == 61992
-    big, sb = _admm_case(1, 150, 268, seed=1, device=card)
-    with pytest.raises(ValueError, match="shared memory"):
-        admm.admm_iterations(big, sb, n_iters=1, **ADMM_KW)
+    for dtype in (torch.float32, torch.float64):
+        big, sb = _admm_case(1, 150, 268, seed=1, device=card, dtype=dtype)
+        before = dict(admm.launches)
+        out = admm.admm_iterations(big, sb, n_iters=3, **ADMM_KW)
+        torch.cuda.synchronize()
+        # every K6 launch counts, the global ones also under their own key
+        for key in ("admm_iterations", "admm_iterations_global"):
+            assert admm.launches[key] == before[key] + 1
+        assert int(out.it[0]) == 3 and out.x.dtype == dtype
+        assert torch.isfinite(out.x).all()
+
+
+def _rel(a, b):
+    scale = b.abs().amax(-1, keepdim=True).clamp(min=1e-3)
+    return float(((a - b).abs() / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,dtype,tol", [
+    (150, 268, torch.float32, 5e-5), (150, 208, torch.float32, 5e-5),
+    (116, 230, torch.float32, 5e-5), (150, 268, torch.float64, 1e-10),
+    (60, 118, torch.float64, 1e-10)])
+def test_admm_global_variant_matches_twin_at_a_fixed_count_on_card(
+        card, n, m, dtype, tol):
+    """The global variant (named directly where another one would serve the
+    shape) against the twin over 200 iterations with the termination test
+    off: x and y within `tol` of the lane's largest entry (float32: the
+    chip smoke's TOL_ADMM_REL; float64: rounding of two summation orders),
+    every lane at the same count."""
+    from uneven_planner_tpu_torch.kernels import admm
+    d, s = _admm_case(4, n, m, seed=n + m, device=card, dtype=dtype)
+    kw = dict(ADMM_KW, eps_abs=0.0, eps_rel=0.0, max_iter=1000)
+    got = admm.launch_variant("global", d, s, n_iters=200, **kw)
+    want = admm.admm_iterations_twin(d, s, n_iters=200, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.it, want.it) and int(got.it.min()) == 200
+    assert _rel(got.x, want.x) < tol and _rel(got.y, want.y) < tol
+    assert _rel(got.z, want.z) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_admm_global_variant_is_resumable_bit_for_bit_on_card(card, dtype):
+    """25 + 375 iterations equal 400 bit for bit in the global variant, and
+    it stops where the twin stops on a loose test."""
+    from uneven_planner_tpu_torch.kernels import admm
+    d, s = _admm_case(8, 150, 268, seed=7, device=card, dtype=dtype)
+    kw = dict(ADMM_KW, eps_abs=1e-7, eps_rel=1e-7, max_iter=2000)
+    whole = admm.admm_iterations(d, s, n_iters=400, **kw)
+    part = admm.admm_iterations(d, s, n_iters=25, **kw)
+    part = admm.admm_iterations(d, part, n_iters=375, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, part):
+        assert torch.equal(a, b)
+    got = admm.admm_iterations(d, s, n_iters=400, **ADMM_KW)
+    want = admm.admm_iterations_twin(d, s, n_iters=400, **ADMM_KW)
+    assert (got.it - want.it).abs().max() <= 1, (got.it, want.it)
+    assert _rel(got.x, want.x) < 1e-3
 
 
 @pytest.mark.cuda
@@ -450,9 +584,54 @@ def test_solve_qp_on_card_goes_through_the_kernel(card):
     n_launch = admm.launches["admm_iterations"] - before
     assert n_launch >= 1 and n_launch == -(-int(ada.iters.max()) // 25)
     assert (ada.x.double().cpu() - ref.x).abs().max() < 1e-3
-    with pytest.raises(TypeError):
-        admm_qp.solve_qp(*[a.double() for a in qp], adaptive_rho=False,
-                         polish=False)
+    # float64 on the card goes through the kernel too (the global variant)
+    before = dict(admm.launches)
+    d64 = admm_qp.solve_qp(*[a.double() for a in qp], adaptive_rho=False,
+                           **dict(kw, eps_abs=1e-10, eps_rel=1e-10))
+    for key in ("admm_iterations", "admm_iterations_global"):
+        assert admm.launches[key] == before[key] + 1
+    assert (d64.x.cpu() - ref.x).abs().max() < 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-2),
+                                       (torch.float64, 1e-4)])
+def test_full_qp_mpc_step_on_card_goes_through_the_kernel(card, dtype, tol):
+    """`mpc_step` with the full QP (n = 150, m = 208) on the card, float32
+    and float64: one K6 launch per relinearization pass, commands near the
+    CPU's float64 step (float32: the QP's 1e-6 test at the float32 floor;
+    float64: summation order moves a count by one)."""
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.mpc import tracker, traj_msg
+    from uneven_planner_tpu_torch.minco.traj import expand_traj
+    from uneven_planner_tpu_torch.sim import rollout
+    cfg = MPCConfig(qp_condense=False)
+    B = 4
+    # the reference horizon, sampled on the CPU in float64 (the gather
+    # kernels of the sampling take 4-byte elements only)
+    f8 = expand_traj(traj_msg.figure_eight(0.5, device="cpu"), B)
+    s0 = torch.zeros((B, 3), dtype=torch.float64)
+    s0[:, 0] = torch.tensor([0.02, -0.03, 0.0, 0.04])
+    s0[:, 2] = np.pi / 4
+    s = rollout.roll_init(s0, cfg)
+    refs, _ = tracker.get_ref_points(f8, s.t, cfg)
+    refs = tracker.smooth_yaw(refs, s.state[:, 2])
+
+    def step(dev, dt):
+        to = lambda a: a.to(device=dev, dtype=dt)
+        return tracker.mpc_step(to(s.state), to(refs),
+                                to(torch.zeros_like(refs[:, :2])),
+                                to(s.output), to(s.buff), cfg)
+
+    before = dict(admm.launches)
+    got = step(card, dtype)
+    torch.cuda.synchronize()
+    for key in ("admm_iterations", "admm_iterations_global"):
+        assert admm.launches[key] - before[key] == int(got.sqp_iters.max())
+    want = step("cpu", torch.float64)
+    assert got.cmd.dtype == dtype and not got.qp_failed.any()
+    assert (got.cmd.double().cpu() - want.cmd).abs().max() < tol
 
 
 @pytest.mark.cuda

@@ -91,11 +91,21 @@ def test_pair_table_bits_match_jax(grids):
 
 
 def test_packed16_table_bits_match_jax(grids):
+    """The port's f16 table holds the JAX package's bits, transposed and
+    with the cells ordered x fastest (cell (x, y, w) at row
+    (y * Nyaw + w) * Nx + x of each half)."""
     jg, tg = grids
     words = tg.data_packed16.numpy().view(np.uint32)
-    np.testing.assert_array_equal(
-        words[:, :6], np.asarray(jg.data_packed16).view(np.uint32).T)
+    nx, ny, nyaw = tg.voxel_num
+    jw = np.asarray(jg.data_packed16).view(np.uint32).T \
+        .reshape(2, nx, ny, nyaw, 6).transpose(0, 2, 3, 1, 4).reshape(-1, 6)
+    np.testing.assert_array_equal(words[:, :6], jw)
     assert not words[:, 6:].any()
+    x, y, w = nx - 2, 1, nyaw - 1
+    jrow = np.asarray(jg.data_packed16).view(np.uint32)[
+        :, (x * ny + y) * nyaw + w]
+    np.testing.assert_array_equal(
+        words[tgrid.packed16_row(x, y, w, tg.voxel_num), :6], jrow)
 
 
 @pytest.mark.parametrize("mode", MODES)

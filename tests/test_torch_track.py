@@ -150,6 +150,33 @@ def test_batched_rollout_matches_vmap_of_jax_track_trajectory(f8_tracked):
         assert a.shape == b.shape and torch.equal(a, b)
 
 
+def test_full_qp_rollout_matches_vmap_of_jax_track_trajectory():
+    """The full QP (`qp_condense=False`, states and inputs as variables),
+    horizon 8: 2 lanes x 10 ticks of the figure-eight in both packages,
+    f64.  States within 1e-12 and commands within 1e-10, as the condensed
+    rollout holds in practice: the QP's 1e-6 test decides the same
+    iteration on both sides, so the two differ by the order of their
+    products' sums only."""
+    kw = dict(qp_condense=False, predict_steps=8)
+    jc, tc = JMPCConfig(**kw), MPCConfig(**kw)
+    s0 = _f8_starts(2, 11)
+    want = jax.jit(jax.vmap(lambda s: jrollout.track_trajectory(
+        jmsg.figure_eight(0.5), s, jc, n_steps=10, max_sqp_iter=3)))(
+            jnp.asarray(s0))
+    want = jax.tree.map(np.asarray, want)
+    got = rollout.track_trajectory_batched(
+        traj_msg.figure_eight(0.5, device=CPU), s0, tc, 10, device=CPU)
+    assert got.states.shape == (2, 10, 3)
+    np.testing.assert_allclose(got.states.numpy(), want.states, rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(got.cmds.numpy(), want.cmds, rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(got.mean_err.numpy(), want.mean_err, rtol=0,
+                               atol=1e-12)
+    assert not got.qp_failed.any() and (got.mean_err < 0.06).all()
+    assert (got.qp_iters_max <= tc.qp_scan_iters).all()
+
+
 def test_track_trajectory_is_a_batch_of_one(f8_tracked):
     s0, f8, tc, _, got = f8_tracked
     one = rollout.track_trajectory(f8, s0[1], tc, 12, device=CPU)

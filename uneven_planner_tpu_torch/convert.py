@@ -40,7 +40,8 @@ def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
     and occupancy, with both gather tables.
 
     `data_pair` ([8, Ncells]) and `data_packed16` ([6, 2*Ncells], f32 or
-    uint32 words) in the JAX package's layout are converted when given; a
+    uint32 words) in the JAX package's layout are converted (transposed,
+    and the packed table's cells reordered with x fastest) when given; a
     table not given is built in the port."""
     dev = resolve_device(device)
     occ = np.asarray(occ)
@@ -59,7 +60,8 @@ def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
             .view(np.int32).T                            # [2*Ncells, 6]
         packed = np.zeros((words.shape[0], 8), np.int32)
         packed[:, :6] = words
-        grid = grid.replace(data_packed16=_t(packed, dev))
+        grid = grid.replace(data_packed16=_t(
+            tgrid.packed16_x_fastest(packed, grid.voxel_num), dev))
     else:
         grid = tgrid.with_packed_f16(grid)
     return grid

@@ -67,6 +67,12 @@
 // agrees to rounding, not bit for bit.  max and clip propagate NaN, as
 // jnp.max and jnp.clip do: a lane with a non-finite factorisation runs to
 // its limit and returns NaN, which the caller detects.
+//
+// A third instantiation, further down, keeps P and A in device memory and
+// is templated on the scalar type: it serves the full tracking QP (n = 150,
+// m = 208) and float64, which the shared-memory design cannot hold.  The
+// wrapper (kernels/admm.py:variant) picks one of the three by shape and
+// dtype before the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -553,6 +559,409 @@ int launch(const AdmmArgs& a, int batch, long long bytes,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The global-memory variant: any (n, m), float and double.
+//
+// It serves what the shared-memory design above cannot hold: the full
+// tracking QP (n = 150, m = 208: P and A alone are 215 KB a lane in float)
+// and every float64 QP.  The same update sequence, per-lane freeze and
+// NaN-propagating maxima; P and A stay in device memory and are read
+// through the read-only path on every iteration, Minv is staged into shared
+// memory when it fits beside the vectors (float n = 150: 90 KB, double
+// n = 150: 180 KB) and is read from device memory otherwise.  What bounds
+// it: bytes, two passes over A and one over P a lane and iteration (the
+// four products with A share them: A x~ with A x+, and A'y+ with A'v+).
+// An iteration is three stages, each closed by a barrier:
+//
+//   B1 a warp per row j of Minv, lanes across the columns: x~_j, then
+//      x+_j = alpha x~_j + (1 - alpha) x_j in place;
+//   B3 a warp per row, four rows at a time: row i of A gives z~_i = A_i x~
+//      and (A x+)_i from one read (then the z, y, v updates and the primal
+//      residual of row i), row j of P gives (P x+)_j;
+//   C  a thread per column j of A, the warp reading consecutive columns of
+//      one row: A'y+ and A'v+ over the rows, then the dual residual of
+//      column j and the next rhs_j; then the warps' maxima.
+//
+// Sums run in a fixed order (a lane's running sum over columns wl, wl + 32,
+// ..., then a butterfly, whose lanes all end on the same bits; a column's
+// running sum over the rows in order), so 25 + 375 iterations equal 400
+// bit for bit.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct GlobalArgs {
+  const T *P, *q, *A, *l, *u, *rho, *minv, *dinv, *einv, *cinv;
+  const T *x_in, *z_in, *y_in;
+  const int* it_in;
+  const T *rp_in, *rd_in, *pn_in, *dn_in;
+  const unsigned char* done_in;
+  T *x, *z, *y;
+  int* it;
+  T *rp, *rd, *pn, *dn;
+  unsigned char* done;
+  int n, m;
+  T sigma, alpha, one_minus_alpha, eps_abs, eps_rel;
+  int max_iter, n_iters;
+  bool minv_resident;
+};
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float abs_t(float v) { return fabsf(v); }
+__device__ __forceinline__ double abs_t(double v) { return fabs(v); }
+__device__ __forceinline__ double nan_max(double a, double b) {
+  return (a != a || b != b) ? (double)NAN : fmax(a, b);
+}
+__device__ __forceinline__ double nan_min(double a, double b) {
+  return (a != a || b != b) ? (double)NAN : fmin(a, b);
+}
+
+// rows of A or P a warp reduces at once in the global variant, and the
+// running sums of one of its column sums
+constexpr int kRows = 4;
+constexpr int kSums = 8;
+
+// every lane ends on the same bits: at each step two lanes add the same
+// pair, in either order
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_nan_max(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Words of shared memory: the reduction scratch, seven n-vectors (x, rhs,
+// x~, P x+, q, cinv dinv, cinv dinv q), seven m-vectors (z, y, v, l, u,
+// rho, einv), and Minv when it fits.
+__host__ __device__ inline long long global_vector_words(int n, int m) {
+  return 4LL * kWarps + 7LL * n + 7LL * m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) admm_global_kernel(
+    GlobalArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  T* sm = reinterpret_cast<T*>(sm_raw);
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, wl = tid & 31;
+  const int n = a.n, m = a.m;
+  const long long on = (long long)lane * n, om = (long long)lane * m;
+
+  int it = a.it_in[lane];
+  bool done = a.done_in[lane] != 0;
+  T r_prim = a.rp_in[lane], r_dual = a.rd_in[lane];
+  T prim_norm = a.pn_in[lane], dual_norm = a.dn_in[lane];
+
+  if (done || a.n_iters <= 0) {  // a frozen lane passes through unchanged
+    for (int j = tid; j < n; j += kThreads) a.x[on + j] = a.x_in[on + j];
+    for (int i = tid; i < m; i += kThreads) {
+      a.z[om + i] = a.z_in[om + i];
+      a.y[om + i] = a.y_in[om + i];
+    }
+    if (tid == 0) {
+      a.it[lane] = it;
+      a.rp[lane] = r_prim;
+      a.rd[lane] = r_dual;
+      a.pn[lane] = prim_norm;
+      a.dn[lane] = dual_norm;
+      a.done[lane] = done ? 1 : 0;
+    }
+    return;
+  }
+
+  T* s_red = sm;  // [kWarps][4] (rp, rd, pn, dn)
+  T* s_x = s_red + 4 * kWarps;
+  T* s_rhs = s_x + n;
+  T* s_xt = s_rhs + n;
+  T* s_px = s_xt + n;
+  T* s_q = s_px + n;
+  T* s_cd = s_q + n;   // cinv * dinv
+  T* s_qu = s_cd + n;  // cinv * dinv * q
+  T* s_z = s_qu + n;
+  T* s_y = s_z + m;
+  T* s_v = s_y + m;    // rho z - y
+  T* s_l = s_v + m;
+  T* s_u = s_l + m;
+  T* s_rho = s_u + m;
+  T* s_einv = s_rho + m;
+  T* s_minv = s_einv + m;
+
+  const T* __restrict__ gP = a.P + on * n;
+  const T* __restrict__ gA = a.A + om * n;
+  const T* gminv = a.minv + on * n;
+
+  // ---- stage the vectors (and Minv when it fits)
+  if (a.minv_resident)
+    for (int t = tid; t < n * n; t += kThreads) s_minv[t] = __ldg(gminv + t);
+  const T cinv = a.cinv[lane];
+  for (int j = tid; j < n; j += kThreads) {
+    const T q = a.q[on + j];
+    const T cd = cinv * a.dinv[on + j];
+    s_q[j] = q;
+    s_cd[j] = cd;
+    s_qu[j] = cd * q;
+    s_x[j] = a.x_in[on + j];
+    s_px[j] = T(0);
+  }
+  for (int i = tid; i < m; i += kThreads) {
+    const T z = a.z_in[om + i], y = a.y_in[om + i];
+    const T rho = a.rho[om + i];
+    s_l[i] = a.l[om + i];
+    s_u[i] = a.u[om + i];
+    s_rho[i] = rho;
+    s_einv[i] = a.einv[om + i];
+    s_z[i] = z;
+    s_y[i] = y;
+    s_v[i] = rho * z - y;
+  }
+  __syncthreads();
+  const T* minv = a.minv_resident ? s_minv : gminv;
+
+  const T sigma = a.sigma, alpha = a.alpha, oma = a.one_minus_alpha;
+
+  // stage C: A'y+ and A'v+ by columns (kSums running sums over the rows
+  // by i mod kSums, then added pairwise: independent chains, and less
+  // rounding than one running sum), the dual residual of each column and
+  // the next rhs
+  auto stage_c = [&](T& rd, T& dn) {
+    for (int j = tid; j < n; j += kThreads) {
+      T sy[kSums], sv[kSums];
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) sy[k] = sv[k] = T(0);
+      int i = 0;
+      for (; i + kSums <= m; i += kSums) {
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) {
+          const T aij = __ldg(gA + (long long)(i + k) * n + j);
+          sy[k] = fma_t(aij, s_y[i + k], sy[k]);
+          sv[k] = fma_t(aij, s_v[i + k], sv[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSums; ++k)
+        if (i + k < m) {
+          const T aij = __ldg(gA + (long long)(i + k) * n + j);
+          sy[k] = fma_t(aij, s_y[i + k], sy[k]);
+          sv[k] = fma_t(aij, s_v[i + k], sv[k]);
+        }
+#pragma unroll
+      for (int w = kSums / 2; w > 0; w /= 2)
+#pragma unroll
+        for (int k = 0; k < w; ++k) {
+          sy[k] = sy[2 * k] + sy[2 * k + 1];
+          sv[k] = sv[2 * k] + sv[2 * k + 1];
+        }
+      const T ay = sy[0], av = sv[0];
+      const T pxu = s_cd[j] * s_px[j], atyu = s_cd[j] * ay;
+      const T qu = s_qu[j];
+      rd = nan_max(rd, abs_t((pxu + qu) + atyu));
+      dn = nan_max(dn, nan_max(nan_max(abs_t(pxu), abs_t(atyu)), abs_t(qu)));
+      s_rhs[j] = (sigma * s_x[j] - s_q[j]) + av;
+    }
+  };
+
+  // the first rhs, from the state as it came in (the same arithmetic as in
+  // the loop, so a resumed run continues bit for bit)
+  {
+    T rd = T(0), dn = T(0);
+    stage_c(rd, dn);
+  }
+  __syncthreads();
+
+  for (int k = 0;; ++k) {
+    // ---- the termination test of iteration k: block maxima of the warps'
+    // residuals and norms
+    if (k > 0) {
+      r_prim = r_dual = prim_norm = dual_norm = T(0);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        r_prim = nan_max(r_prim, s_red[4 * w]);
+        r_dual = nan_max(r_dual, s_red[4 * w + 1]);
+        prim_norm = nan_max(prim_norm, s_red[4 * w + 2]);
+        dual_norm = nan_max(dual_norm, s_red[4 * w + 3]);
+      }
+      const bool converged =
+          (r_prim < a.eps_abs + a.eps_rel * prim_norm) &&
+          (r_dual < a.eps_abs + a.eps_rel * dual_norm);
+      it += 1;
+      done = converged || (it >= a.max_iter);
+    }
+    if (done || k >= a.n_iters) break;
+
+    // ---- B1: x~ = Minv rhs, then x+ in place (B1 reads no x)
+    for (int j = warp; j < n; j += kWarps) {
+      const T* row = minv + (long long)j * n;
+      T s = T(0);
+      for (int c = wl; c < n; c += 32) s = fma_t(row[c], s_rhs[c], s);
+      s = warp_sum(s);
+      if (wl == 0) {
+        s_xt[j] = s;
+        s_x[j] = alpha * s + oma * s_x[j];
+      }
+    }
+    __syncthreads();
+
+    // ---- B3: rows of A (z~, A x+, the z, y, v updates, the primal
+    // residual) and rows of P (P x+), kRows rows a warp at a time so that
+    // their loads are in flight together
+    T rp = T(0), rd = T(0), pn = T(0), dn = T(0);
+    for (int r0 = kRows * warp; r0 < m; r0 += kRows * kWarps) {
+      T szt[kRows], sax[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) szt[u] = sax[u] = T(0);
+      for (int c = wl; c < n; c += 32) {
+        const T xt = s_xt[c], xp = s_x[c];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          if (r0 + u < m) {
+            const T av = __ldg(gA + (long long)(r0 + u) * n + c);
+            szt[u] = fma_t(av, xt, szt[u]);
+            sax[u] = fma_t(av, xp, sax[u]);
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int r = r0 + u;  // the same on every lane of the warp
+        if (r >= m) break;
+        const T zt = warp_sum(szt[u]);
+        const T ax = s_einv[r] * warp_sum(sax[u]);
+        const T rho = s_rho[r], y = s_y[r];
+        const T z_relax = alpha * zt + oma * s_z[r];
+        const T z_new = nan_min(nan_max(z_relax + y / rho, s_l[r]), s_u[r]);
+        const T y_new = y + rho * (z_relax - z_new);
+        const T zu = s_einv[r] * z_new;
+        rp = nan_max(rp, abs_t(ax - zu));
+        pn = nan_max(pn, nan_max(abs_t(ax), abs_t(zu)));
+        __syncwarp();
+        if (wl == 0) {
+          s_z[r] = z_new;
+          s_y[r] = y_new;
+          s_v[r] = rho * z_new - y_new;
+        }
+      }
+    }
+    for (int j0 = kRows * warp; j0 < n; j0 += kRows * kWarps) {
+      T sp[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) sp[u] = T(0);
+      for (int c = wl; c < n; c += 32) {
+        const T xp = s_x[c];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          if (j0 + u < n)
+            sp[u] = fma_t(__ldg(gP + (long long)(j0 + u) * n + c), xp, sp[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (j0 + u >= n) break;
+        const T px = warp_sum(sp[u]);
+        if (wl == 0) s_px[j0 + u] = px;
+      }
+    }
+    __syncthreads();
+
+    // ---- C and the warps' maxima of the residuals and norms
+    stage_c(rd, dn);
+    rp = warp_nan_max(rp);
+    rd = warp_nan_max(rd);
+    pn = warp_nan_max(pn);
+    dn = warp_nan_max(dn);
+    if (wl == 0) {
+      s_red[4 * warp] = rp;
+      s_red[4 * warp + 1] = rd;
+      s_red[4 * warp + 2] = pn;
+      s_red[4 * warp + 3] = dn;
+    }
+    __syncthreads();
+    // s_red is written again only after the next B1's and B3's barriers,
+    // which every thread reaches after reading it
+  }
+
+  for (int j = tid; j < n; j += kThreads) a.x[on + j] = s_x[j];
+  for (int i = tid; i < m; i += kThreads) {
+    a.z[om + i] = s_z[i];
+    a.y[om + i] = s_y[i];
+  }
+  if (tid == 0) {
+    a.it[lane] = it;
+    a.rp[lane] = r_prim;
+    a.rd[lane] = r_dual;
+    a.pn[lane] = prim_norm;
+    a.dn[lane] = dual_norm;
+    a.done[lane] = done ? 1 : 0;
+  }
+}
+
+// Bytes of dynamic shared memory of the global variant, and whether Minv
+// is among them; 0 when not even the vectors fit.
+long long global_shared_bytes(int n, int m, int elt, bool* minv_resident) {
+  const long long vec = (long long)elt * global_vector_words(n, m);
+  const long long with_minv = vec + (long long)elt * n * n;
+  *minv_resident = with_minv <= kMaxShared;
+  if (*minv_resident) return with_minv;
+  return vec <= kMaxShared ? vec : 0;
+}
+
+template <typename T>
+int launch_global(const void* const* ptr, int batch, int n, int m,
+                  double sigma, double alpha, double one_minus_alpha,
+                  double eps_abs, double eps_rel, int max_iter, int n_iters,
+                  cudaStream_t stream) {
+  bool resident = false;
+  const long long bytes = global_shared_bytes(n, m, sizeof(T), &resident);
+  if (bytes == 0) return (int)cudaErrorInvalidValue;
+  GlobalArgs<T> a;
+  const T** in[] = {&a.P,    &a.q,    &a.A,    &a.l,    &a.u,
+                    &a.rho,  &a.minv, &a.dinv, &a.einv, &a.cinv,
+                    &a.x_in, &a.z_in, &a.y_in};
+  for (int k = 0; k < 13; ++k) *in[k] = (const T*)ptr[k];
+  a.it_in = (const int*)ptr[13];
+  a.rp_in = (const T*)ptr[14];
+  a.rd_in = (const T*)ptr[15];
+  a.pn_in = (const T*)ptr[16];
+  a.dn_in = (const T*)ptr[17];
+  a.done_in = (const unsigned char*)ptr[18];
+  a.x = (T*)ptr[19];
+  a.z = (T*)ptr[20];
+  a.y = (T*)ptr[21];
+  a.it = (int*)ptr[22];
+  a.rp = (T*)ptr[23];
+  a.rd = (T*)ptr[24];
+  a.pn = (T*)ptr[25];
+  a.dn = (T*)ptr[26];
+  a.done = (unsigned char*)ptr[27];
+  a.n = n;
+  a.m = m;
+  a.sigma = (T)sigma;
+  a.alpha = (T)alpha;
+  a.one_minus_alpha = (T)one_minus_alpha;
+  a.eps_abs = (T)eps_abs;
+  a.eps_rel = (T)eps_rel;
+  a.max_iter = max_iter;
+  a.n_iters = n_iters;
+  a.minv_resident = resident;
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_global_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  admm_global_kernel<T><<<(unsigned)batch, kThreads, (size_t)bytes,
+                          stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -622,6 +1031,49 @@ int admm_iterations(const void* P, const void* q, const void* A,
   cudaStream_t s = (cudaStream_t)stream;
   return is_fixed(n, m) ? launch<kFixedN, kFixedM>(a, batch, bytes, s)
                         : launch<0, 0>(a, batch, bytes, s);
+}
+
+// The global-memory variant (any n, m; float when dbl == 0, double
+// otherwise): bytes of dynamic shared memory a lane takes (0 when not even
+// its vectors fit) and, in *minv_resident, whether Minv is among them.
+long long admm_global_shared_bytes(int n, int m, int dbl,
+                                   int* minv_resident) {
+  bool resident = false;
+  const long long bytes = global_shared_bytes(
+      n, m, dbl ? (int)sizeof(double) : (int)sizeof(float), &resident);
+  *minv_resident = resident ? 1 : 0;
+  return bytes;
+}
+
+// Enqueues the global-memory variant on `stream`, one block per lane: the
+// same 28 pointers as admm_iterations, to float or (dbl != 0) double data,
+// and the scalars in double (rounded to float for a float batch).  Returns
+// the first CUDA error (0 = launched); a shape whose vectors do not fit in
+// a block's shared memory is refused with cudaErrorInvalidValue.
+int admm_iterations_global(
+    const void* P, const void* q, const void* A, const void* l,
+    const void* u, const void* rho, const void* minv, const void* dinv,
+    const void* einv, const void* cinv, const void* x_in, const void* z_in,
+    const void* y_in, const void* it_in, const void* rp_in,
+    const void* rd_in, const void* pn_in, const void* dn_in,
+    const void* done_in, void* x, void* z, void* y, void* it, void* rp,
+    void* rd, void* pn, void* dn, void* done, int batch, int n, int m,
+    int dbl, double sigma, double alpha, double one_minus_alpha,
+    double eps_abs, double eps_rel, int max_iter, int n_iters,
+    void* stream) {
+  if (batch <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  const void* const ptr[28] = {P,     q,    A,     l,     u,     rho,
+                               minv,  dinv, einv,  cinv,  x_in,  z_in,
+                               y_in,  it_in, rp_in, rd_in, pn_in, dn_in,
+                               done_in, x,  z,     y,     it,    rp,
+                               rd,    pn,   dn,    done};
+  cudaStream_t s = (cudaStream_t)stream;
+  return dbl ? launch_global<double>(ptr, batch, n, m, sigma, alpha,
+                                     one_minus_alpha, eps_abs, eps_rel,
+                                     max_iter, n_iters, s)
+             : launch_global<float>(ptr, batch, n, m, sigma, alpha,
+                                    one_minus_alpha, eps_abs, eps_rel,
+                                    max_iter, n_iters, s);
 }
 
 const char* admm_error_string(int code) {

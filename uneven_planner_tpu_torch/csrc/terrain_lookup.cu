@@ -18,11 +18,38 @@
 // What bounds them: bytes.  Per lookup K1 reads 12 B of pose and 2 (4 in
 // exact mode) 32-byte table rows and writes 28 B of tv plus 84 B of J; the
 // arithmetic (~200 flops and 5 transcendentals) is two orders of magnitude
-// below the H100's f32 rate for those bytes.  Design: one thread per
-// sample; tables are row-major with 32-byte rows (one DRAM sector, read as
-// two 16-byte __ldg loads), so each corner costs one sector instead of the
-// 6-8 scattered words of the JAX channel-major layout; outputs are
-// channel-major, so every store of a warp is one contiguous 128-byte line.
+// below the H100's f32 rate for those bytes.  Tables are row-major with
+// 32-byte rows (one DRAM sector, read as two 16-byte __ldg loads), so each
+// corner costs one sector instead of the 6-8 scattered words of the JAX
+// channel-major layout; the packed table orders its cells with x fastest,
+// so K1's two x corners are neighbouring rows, one or two 64-byte DRAM
+// accesses that share a page where rows ny * nyaw apart cost two
+// unrelated ones; outputs are channel-major, so a warp's store is one
+// contiguous line.
+//
+// K1's design (K2 keeps one thread per sample):
+// - the packed table orders its cells with x fastest (above);
+// - the mode is compiled in: exact and want_jac are template parameters,
+//   so the solver's hi-only instantiation carries no residual loads;
+// - index math is 32-bit when the table has fewer than 2^31 16-byte words
+//   (every map the planner builds), 64-bit otherwise: a second
+//   instantiation, chosen by the wrapper from the table size;
+// - a thread per sample, its pose and row loads issued before its math,
+//   while that gives every SM a block or more;
+// - fewer samples (the pipeline's solver step): the time is one thread's
+//   dependent chain on a few SMs, so a sample is spread over a quad of
+//   lanes: lane ch < 3 loads the half-rows of channel ch (words 2ch,
+//   2ch + 1) and blends that channel, the quad exchanges the 12 blended
+//   values by __shfl_sync, lane k < 3 forms column k of J and lane 3 tv,
+//   and each lane stores its share.
+// On the card (PERF.md, chip_studies/k1_ablation.py) J's stores and the
+// pose-dependent row loads take most of the time at the headline's size
+// and the tail's arithmetic at most a thirtieth: bytes, not the chain, set
+// it there; the x-fastest order cut the row loads' cost by about a third.
+// Resident-grid variants with two samples in flight per thread lost to a
+// thread per sample at every size measured.
+// Every sample takes the same operations in the same order in both
+// layouts, so both equal the plain twin bit for bit.
 //
 // Semantics follow the JAX functions line by line, in fp32: floor-based
 // cell index, clamped xy corners (jnp.take mode="clip"), wrapped yaw index,
@@ -68,77 +95,149 @@ __device__ __forceinline__ long long clampll(long long v, long long lo,
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+template <typename Idx>
+__device__ __forceinline__ Idx clamp_to(Idx v, Idx lo, Idx hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// clamp(i, 0, n - 1) and clamp(i + 1, 0, n - 1) without forming i + 1 where
+// it could overflow (i saturates at INT_MAX in 32-bit index math)
+template <typename Idx>
+__device__ __forceinline__ void clamp_pair(Idx i, Idx n, Idx& lo, Idx& hi) {
+  lo = clamp_to<Idx>(i, 0, n - 1);
+  hi = i < 0 ? Idx(0) : (i >= n - 1 ? n - 1 : i + 1);
+}
+
+// floored cell coordinates: all the table rows depend on
+struct CellF {
+  float ixf, iyf, iwf;
+};
+
+template <typename Idx>
 struct Cell {
   float wx, wy, wt;
   bool low, inside;
-  long long ix0, ix1, iy0, iy1, iw;
+  Idx ix0, ix1, iy0, iy1, iw;
 };
 
-// grid.py:571-583 (packed16, low_y_rule) and grid.py:803-815 (pair)
-__device__ __forceinline__ Cell cell_setup(const Geom& g, float px, float py,
-                                           float yaw, bool low_y_rule) {
-  Cell c;
-  const float ixf = floorf((px - g.half_res - g.ox) / g.res);
-  const float iyf = floorf((py - g.half_res - g.oy) / g.res);
+// grid.py:571-583 (packed16, low_y_rule) and grid.py:803-815 (pair), in
+// three steps so that the table loads can be issued as soon as the indices
+// exist: the floored coordinates, the indices, the weights.
+__device__ __forceinline__ CellF cell_floor(const Geom& g, float px,
+                                            float py, float yaw) {
+  CellF f;
+  f.ixf = floorf((px - g.half_res - g.ox) / g.res);
+  f.iyf = floorf((py - g.half_res - g.oy) / g.res);
   const float ywm = normalize_so2(yaw - g.half_yres);
-  const float iwf = floorf((ywm - g.oyaw) / g.yres);
-  c.wx = (px - ((ixf + 0.5f) * g.res + g.ox)) / g.res;
-  const float wy = (py - ((iyf + 0.5f) * g.res + g.oy)) / g.res;
-  c.low = low_y_rule && (iyf < 0.f);
-  c.wy = c.low ? 0.f : wy;
-  c.wt = so2_diff(yaw, (iwf + 0.5f) * g.yres + g.oyaw) / g.yres;
+  f.iwf = floorf((ywm - g.oyaw) / g.yres);
+  return f;
+}
+
+template <typename Idx>
+__device__ __forceinline__ void cell_index(const Geom& g, const CellF& f,
+                                           Cell<Idx>& c) {
   // float -> int saturates and maps NaN to 0; the clamps keep every index
   // inside the table whatever the pose
-  const long long ix = __float2int_rz(ixf);
-  const long long iy = __float2int_rz(iyf);
-  const long long iw = __float2int_rz(iwf);
-  c.ix0 = clampll(ix, 0, g.nx - 1);
-  c.ix1 = clampll(ix + 1, 0, g.nx - 1);
-  c.iy0 = clampll(iy, 0, g.ny - 1);
-  c.iy1 = clampll(iy + 1, 0, g.ny - 1);
+  const Idx ix = __float2int_rz(f.ixf);
+  const Idx iy = __float2int_rz(f.iyf);
+  const Idx iw = __float2int_rz(f.iwf);
+  clamp_pair<Idx>(ix, g.nx, c.ix0, c.ix1);
+  clamp_pair<Idx>(iy, g.ny, c.iy0, c.iy1);
   c.iw = ((iw % g.nyaw) + g.nyaw) % g.nyaw;
+}
+
+template <typename Idx>
+__device__ __forceinline__ void cell_weights(const Geom& g, float px,
+                                             float py, float yaw,
+                                             const CellF& f, bool low_y_rule,
+                                             Cell<Idx>& c) {
+  c.wx = (px - ((f.ixf + 0.5f) * g.res + g.ox)) / g.res;
+  const float wy = (py - ((f.iyf + 0.5f) * g.res + g.oy)) / g.res;
+  c.low = low_y_rule && (f.iyf < 0.f);
+  c.wy = c.low ? 0.f : wy;
+  c.wt = so2_diff(yaw, (f.iwf + 0.5f) * g.yres + g.oyaw) / g.yres;
   c.inside = (px > g.lo_x) && (px < g.hi_x) && (py > g.lo_y) && (py < g.hi_y);
+}
+
+template <typename Idx>
+__device__ __forceinline__ Cell<Idx> cell_setup(const Geom& g, float px,
+                                                float py, float yaw,
+                                                bool low_y_rule) {
+  const CellF f = cell_floor(g, px, py, yaw);
+  Cell<Idx> c;
+  cell_index<Idx>(g, f, c);
+  cell_weights<Idx>(g, px, py, yaw, f, low_y_rule, c);
   return c;
 }
 
-// _tv_from_fields (grid.py:700-712) and its Jacobian.  dsig/dzb0/dzb1 are the
-// field derivatives along (px, py, yaw); yaw also enters directly.
+// _tv_from_fields (grid.py:700-712) and its Jacobian, in parts: what tv and
+// every column of J share, tv, and column k of J (the field derivatives
+// along coordinate k of (px, py, yaw); yaw also enters directly).
+struct Tail {
+  float zb0, zb1, q, c, inv_c, cy, sy, t, s, p, sq, inv_sq;
+};
+
+__device__ __forceinline__ Tail tail_common(float zb0, float zb1,
+                                            float yaw) {
+  Tail a;
+  a.zb0 = zb0;
+  a.zb1 = zb1;
+  a.q = 1.f - zb0 * zb0 - zb1 * zb1;
+  a.c = sqrtf(floor_at(a.q, 1e-12f));
+  a.inv_c = 1.f / a.c;
+  a.cy = cosf(yaw);
+  a.sy = sinf(yaw);
+  a.t = a.cy * zb0 + a.sy * zb1;
+  a.s = a.sy * zb0 - a.cy * zb1;
+  a.p = 1.f - a.t * a.t;
+  a.sq = sqrtf(floor_at(a.p, 1e-12f));
+  a.inv_sq = 1.f / a.sq;
+  return a;
+}
+
+__device__ __forceinline__ void tail_tv(const Tail& a, float sig,
+                                        float* tv) {
+  tv[0] = a.inv_sq;
+  tv[1] = -a.c * a.t * a.inv_sq;
+  tv[2] = a.sq * a.inv_c;
+  tv[3] = a.s * a.inv_sq;
+  tv[4] = a.c;
+  tv[5] = a.inv_c;
+  tv[6] = sig;
+}
+
+// Jk[r] = d tv_r / d coordinate k
+__device__ __forceinline__ void tail_jac(const Tail& a, int k, float dsig,
+                                         float dzb0, float dzb1, float* Jk) {
+  const float dc = (a.q > 1e-12f) ? -(a.zb0 * dzb0 + a.zb1 * dzb1) / a.c
+                                  : 0.f;
+  const float dt = a.cy * dzb0 + a.sy * dzb1 + (k == 2 ? -a.s : 0.f);
+  const float ds = a.sy * dzb0 - a.cy * dzb1 + (k == 2 ? a.t : 0.f);
+  const float dsq = (a.p > 1e-12f) ? -a.t * dt / a.sq : 0.f;
+  const float dinv_sq = -a.inv_sq * a.inv_sq * dsq;
+  const float dinv_c = -a.inv_c * a.inv_c * dc;
+  Jk[0] = dinv_sq;
+  Jk[1] = -(dc * a.t * a.inv_sq + a.c * dt * a.inv_sq + a.c * a.t * dinv_sq);
+  Jk[2] = dsq * a.inv_c + a.sq * dinv_c;
+  Jk[3] = ds * a.inv_sq + a.s * dinv_sq;
+  Jk[4] = dc;
+  Jk[5] = dinv_c;
+  Jk[6] = dsig;
+}
+
 __device__ __forceinline__ void tv_tail(float sig, float zb0, float zb1,
                                         float yaw, const float* dsig,
                                         const float* dzb0, const float* dzb1,
                                         bool want_jac, float* tv, float* J) {
-  const float q = 1.f - zb0 * zb0 - zb1 * zb1;
-  const float c = sqrtf(floor_at(q, 1e-12f));
-  const float inv_c = 1.f / c;
-  const float cy = cosf(yaw), sy = sinf(yaw);
-  const float t = cy * zb0 + sy * zb1;
-  const float s = sy * zb0 - cy * zb1;
-  const float p = 1.f - t * t;
-  const float sq = sqrtf(floor_at(p, 1e-12f));
-  const float inv_sq = 1.f / sq;
-  tv[0] = inv_sq;
-  tv[1] = -c * t * inv_sq;
-  tv[2] = sq * inv_c;
-  tv[3] = s * inv_sq;
-  tv[4] = c;
-  tv[5] = inv_c;
-  tv[6] = sig;
+  const Tail a = tail_common(zb0, zb1, yaw);
+  tail_tv(a, sig, tv);
   if (!want_jac) return;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float dc = (q > 1e-12f) ? -(zb0 * dzb0[k] + zb1 * dzb1[k]) / c : 0.f;
-    const float dt = cy * dzb0[k] + sy * dzb1[k] + (k == 2 ? -s : 0.f);
-    const float ds = sy * dzb0[k] - cy * dzb1[k] + (k == 2 ? t : 0.f);
-    const float dsq = (p > 1e-12f) ? -t * dt / sq : 0.f;
-    const float dinv_sq = -inv_sq * inv_sq * dsq;
-    const float dinv_c = -inv_c * inv_c * dc;
-    J[0 * 3 + k] = dinv_sq;
-    J[1 * 3 + k] = -(dc * t * inv_sq + c * dt * inv_sq + c * t * dinv_sq);
-    J[2 * 3 + k] = dsq * inv_c + sq * dinv_c;
-    J[3 * 3 + k] = ds * inv_sq + s * dinv_sq;
-    J[4 * 3 + k] = dc;
-    J[5 * 3 + k] = dinv_c;
-    J[6 * 3 + k] = dsig[k];
+    float Jk[7];
+    tail_jac(a, k, dsig[k], dzb0[k], dzb1[k], Jk);
+#pragma unroll
+    for (int r = 0; r < 7; ++r) J[r * 3 + k] = Jk[r];
   }
 }
 
@@ -160,79 +259,200 @@ __device__ __forceinline__ void unpack_pair(uint32_t u, float& v_w0,
   v_w1 = __half2float(__ushort_as_half((unsigned short)(u & 0xFFFFu)));
 }
 
-// one 32-byte row of the packed table: words 0-5 used, 6-7 padding
-__device__ __forceinline__ void load_packed_row(const uint4* __restrict__ t,
-                                                long long row, float* v_w0,
-                                                float* v_w1) {
-  const uint4 a = __ldg(t + 2 * row);
-  const uint4 b = __ldg(t + 2 * row + 1);
-  const uint32_t w[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
-#pragma unroll
-  for (int k = 0; k < 6; ++k) unpack_pair(w[k], v_w0[k], v_w1[k]);
+// ---------------------------------------------------------------------------
+// K1
+// ---------------------------------------------------------------------------
+
+// row of the packed table of the corner (ix, iy) at yaw index iw: cells
+// are ordered with x fastest (terrain/grid.py:packed16_row), so the two x
+// corners of a lookup are neighbouring rows
+template <typename Idx>
+__device__ __forceinline__ Idx packed_row(const Geom& g, Idx ix, Idx iy,
+                                          Idx iw) {
+  return clamp_to<Idx>((iy * (Idx)g.nyaw + iw) * (Idx)g.nx + ix, 0,
+                       (Idx)(2 * g.ncells - 1));
 }
 
+// its f16 residual row, at +ncells
+template <typename Idx>
+__device__ __forceinline__ Idx residual_row(const Geom& g, Idx row) {
+  return clamp_to<Idx>(row + (Idx)g.ncells, 0, (Idx)(2 * g.ncells - 1));
+}
+
+// The blends of one channel (grid.py:584-608) from its two words: a[cx][yy]
+// and b[cx][yy] are word 2 ch + yy of x corner cx at yaw w and w + 1.
+struct Chan {
+  float val, dx, dy, dw;
+};
+
+__device__ __forceinline__ Chan blend_channel(const float (&a)[2][2],
+                                              const float (&b)[2][2],
+                                              float wx, float wy, float wt,
+                                              bool low, bool inside,
+                                              const Geom& g) {
+  float vw[2][2];
+#pragma unroll
+  for (int cx = 0; cx < 2; ++cx)
+#pragma unroll
+    for (int yy = 0; yy < 2; ++yy)
+      vw[cx][yy] = a[cx][yy] * (1.f - wt) + b[cx][yy] * wt;
+  const float vy0 = vw[0][0] * (1.f - wy) + vw[0][1] * wy;
+  const float vy1 = vw[1][0] * (1.f - wy) + vw[1][1] * wy;
+  Chan r;
+  r.val = vy0 * (1.f - wx) + vy1 * wx;
+  r.dx = (vy1 - vy0) / g.res;
+  r.dy = low ? 0.f
+             : ((vw[0][1] - vw[0][0]) * (1.f - wx) +
+                (vw[1][1] - vw[1][0]) * wx) / g.res;
+  const float e0 = (b[0][0] - a[0][0]) * (1.f - wy) +
+                   (b[0][1] - a[0][1]) * wy;
+  const float e1 = (b[1][0] - a[1][0]) * (1.f - wy) +
+                   (b[1][1] - a[1][1]) * wy;
+  r.dw = (e0 * (1.f - wx) + e1 * wx) / g.yres;
+  if (!inside) r.val = r.dx = r.dy = r.dw = 0.f;
+  return r;
+}
+
+// Many samples: a thread per sample, its pose and row loads issued before
+// its math.
+template <bool EXACT, bool JAC, typename Idx>
 __global__ void __launch_bounds__(256)
-tv_packed16_kernel(const float* __restrict__ px, const float* __restrict__ py,
+tv_packed16_thread(const float* __restrict__ px,
+                   const float* __restrict__ py,
                    const float* __restrict__ yaw,
                    const uint4* __restrict__ table, float* __restrict__ tv,
-                   float* __restrict__ jac, int M, Geom g, int exact,
-                   int want_jac) {
+                   float* __restrict__ jac, int M, Geom g) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  const float x = px[i], y = py[i], w = yaw[i];
-  const Cell c = cell_setup(g, x, y, w, true);
-  const long long last = 2 * g.ncells - 1;
-  const long long row[2] = {
-      clampll((c.ix0 * g.ny + c.iy0) * g.nyaw + c.iw, 0, last),
-      clampll((c.ix1 * g.ny + c.iy0) * g.nyaw + c.iw, 0, last)};
-
+  const float x = __ldg(px + i), y = __ldg(py + i), w = __ldg(yaw + i);
+  const CellF f = cell_floor(g, x, y, w);
+  Cell<Idx> c;
+  cell_index<Idx>(g, f, c);
+  uint4 raw[2][EXACT ? 4 : 2];  // [x corner]: hi halves, then residual ones
+#pragma unroll
+  for (int cx = 0; cx < 2; ++cx) {
+    const Idx row = packed_row<Idx>(g, cx ? c.ix1 : c.ix0, c.iy0, c.iw);
+    raw[cx][0] = __ldg(table + 2 * row);
+    raw[cx][1] = __ldg(table + 2 * row + 1);
+    if constexpr (EXACT) {
+      const Idx res = residual_row<Idx>(g, row);
+      raw[cx][2] = __ldg(table + 2 * res);
+      raw[cx][3] = __ldg(table + 2 * res + 1);
+    }
+  }
+  cell_weights<Idx>(g, x, y, w, f, true, c);
   // v0/v1[x corner][word]: values at yaw w / w+1; word = 2*ch + yy
   float v0[2][6], v1[2][6];
 #pragma unroll
   for (int cx = 0; cx < 2; ++cx) {
-    load_packed_row(table, row[cx], v0[cx], v1[cx]);
-    if (exact) {  // hi + f16 residual row at +ncells
-      float r0[6], r1[6];
-      load_packed_row(table, clampll(row[cx] + g.ncells, 0, last), r0, r1);
+    const uint32_t wd[6] = {raw[cx][0].x, raw[cx][0].y, raw[cx][0].z,
+                            raw[cx][0].w, raw[cx][1].x, raw[cx][1].y};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) unpack_pair(wd[k], v0[cx][k], v1[cx][k]);
+    if constexpr (EXACT) {
+      const uint4 rlo = raw[cx][2], rhi = raw[cx][3];
+      const uint32_t rw[6] = {rlo.x, rlo.y, rlo.z, rlo.w, rhi.x, rhi.y};
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
-        v0[cx][k] = v0[cx][k] + r0[k];
-        v1[cx][k] = v1[cx][k] + r1[k];
+        float r0, r1;
+        unpack_pair(rw[k], r0, r1);
+        v0[cx][k] = v0[cx][k] + r0;
+        v1[cx][k] = v1[cx][k] + r1;
       }
     }
   }
-
-  const float wx = c.wx, wy = c.wy, wt = c.wt;
-  float vw[2][6];
+  Chan ch[3];
 #pragma unroll
-  for (int cx = 0; cx < 2; ++cx)
-#pragma unroll
-    for (int k = 0; k < 6; ++k)
-      vw[cx][k] = v0[cx][k] * (1.f - wt) + v1[cx][k] * wt;
-
-  float val[3], dx[3], dy[3], dw[3];
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float vy0 = vw[0][2 * ch] * (1.f - wy) + vw[0][2 * ch + 1] * wy;
-    const float vy1 = vw[1][2 * ch] * (1.f - wy) + vw[1][2 * ch + 1] * wy;
-    val[ch] = vy0 * (1.f - wx) + vy1 * wx;
-    dx[ch] = (vy1 - vy0) / g.res;
-    dy[ch] = c.low ? 0.f
-                   : ((vw[0][2 * ch + 1] - vw[0][2 * ch]) * (1.f - wx) +
-                      (vw[1][2 * ch + 1] - vw[1][2 * ch]) * wx) / g.res;
-    const float e0 = (v1[0][2 * ch] - v0[0][2 * ch]) * (1.f - wy) +
-                     (v1[0][2 * ch + 1] - v0[0][2 * ch + 1]) * wy;
-    const float e1 = (v1[1][2 * ch] - v0[1][2 * ch]) * (1.f - wy) +
-                     (v1[1][2 * ch + 1] - v0[1][2 * ch + 1]) * wy;
-    dw[ch] = (e0 * (1.f - wx) + e1 * wx) / g.yres;
-    if (!c.inside) val[ch] = dx[ch] = dy[ch] = dw[ch] = 0.f;
+  for (int k = 0; k < 3; ++k) {
+    const float a[2][2] = {{v0[0][2 * k], v0[0][2 * k + 1]},
+                           {v0[1][2 * k], v0[1][2 * k + 1]}};
+    const float b[2][2] = {{v1[0][2 * k], v1[0][2 * k + 1]},
+                           {v1[1][2 * k], v1[1][2 * k + 1]}};
+    ch[k] = blend_channel(a, b, c.wx, c.wy, c.wt, c.low, c.inside, g);
   }
-  const float dsig[3] = {dx[0], dy[0], dw[0]};
-  const float dzb0[3] = {dx[1], dy[1], dw[1]};
-  const float dzb1[3] = {dx[2], dy[2], dw[2]};
+  const float dsig[3] = {ch[0].dx, ch[0].dy, ch[0].dw};
+  const float dzb0[3] = {ch[1].dx, ch[1].dy, ch[1].dw};
+  const float dzb1[3] = {ch[2].dx, ch[2].dy, ch[2].dw};
   float t[7], J[21];
-  tv_tail(val[0], val[1], val[2], w, dsig, dzb0, dzb1, want_jac, t, J);
-  store(tv, jac, i, M, want_jac, t, J);
+  tv_tail(ch[0].val, ch[1].val, ch[2].val, w, dsig, dzb0, dzb1, JAC, t, J);
+  store(tv, jac, i, M, JAC, t, J);
+}
+
+// Few samples: a quad of lanes per sample (see the top of the file).  Every
+// lane of a warp takes part in the exchange: lanes past the end work on the
+// last sample and store nothing.
+template <bool EXACT, bool JAC, typename Idx>
+__global__ void __launch_bounds__(256)
+tv_packed16_quad(const float* __restrict__ px, const float* __restrict__ py,
+                 const float* __restrict__ yaw,
+                 const uint4* __restrict__ table, float* __restrict__ tv,
+                 float* __restrict__ jac, int M, Geom g) {
+  const long long gi = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 2;
+  const int q = threadIdx.x & 3;
+  const int lead = (threadIdx.x & 31) & ~3;  // the quad's lane 0
+  const bool ok = gi < M;
+  const int i = ok ? (int)gi : M - 1;
+  const float x = __ldg(px + i), y = __ldg(py + i), w = __ldg(yaw + i);
+  const CellF f = cell_floor(g, x, y, w);
+  Cell<Idx> c;
+  cell_index<Idx>(g, f, c);
+  // lane q blends channel q (lane 3 channel 0 again, unused): words 2ch and
+  // 2ch + 1, in half `half` of each row
+  const int ch = q == 3 ? 0 : q;
+  const int half = ch == 2 ? 1 : 0;
+  uint4 hv[2], rv[2];
+#pragma unroll
+  for (int cx = 0; cx < 2; ++cx) {
+    const Idx row = packed_row<Idx>(g, cx ? c.ix1 : c.ix0, c.iy0, c.iw);
+    hv[cx] = __ldg(table + 2 * row + half);
+    if constexpr (EXACT)
+      rv[cx] = __ldg(table + 2 * residual_row<Idx>(g, row) + half);
+  }
+  cell_weights<Idx>(g, x, y, w, f, true, c);
+  float a[2][2], b[2][2];
+#pragma unroll
+  for (int cx = 0; cx < 2; ++cx) {
+    const bool zw = ch == 1;  // words 2, 3 are the half's .z, .w
+    unpack_pair(zw ? hv[cx].z : hv[cx].x, a[cx][0], b[cx][0]);
+    unpack_pair(zw ? hv[cx].w : hv[cx].y, a[cx][1], b[cx][1]);
+    if constexpr (EXACT) {
+      float r[2][2];
+      unpack_pair(zw ? rv[cx].z : rv[cx].x, r[0][0], r[1][0]);
+      unpack_pair(zw ? rv[cx].w : rv[cx].y, r[0][1], r[1][1]);
+#pragma unroll
+      for (int yy = 0; yy < 2; ++yy) {
+        a[cx][yy] = a[cx][yy] + r[0][yy];
+        b[cx][yy] = b[cx][yy] + r[1][yy];
+      }
+    }
+  }
+  const Chan mine = blend_channel(a, b, c.wx, c.wy, c.wt, c.low, c.inside, g);
+  // every lane gets the three channels' values, and lane k < 3 their
+  // derivatives along coordinate k
+  float val[3], dk[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    val[k] = __shfl_sync(0xffffffffu, mine.val, lead + k);
+    const float dx = __shfl_sync(0xffffffffu, mine.dx, lead + k);
+    const float dy = __shfl_sync(0xffffffffu, mine.dy, lead + k);
+    const float dw = __shfl_sync(0xffffffffu, mine.dw, lead + k);
+    dk[k] = q == 0 ? dx : (q == 1 ? dy : dw);
+  }
+  const Tail tl = tail_common(val[1], val[2], w);
+  if (!ok) return;
+  if (JAC && q < 3) {
+    float Jk[7];
+    tail_jac(tl, q, dk[0], dk[1], dk[2], Jk);
+#pragma unroll
+    for (int r = 0; r < 7; ++r) jac[(long long)(3 * r + q) * M + i] = Jk[r];
+  } else {
+    float t[7];
+    tail_tv(tl, val[0], t);
+    // with J, lane 3 stores all of tv; without, the quad shares it
+#pragma unroll
+    for (int r = 0; r < 7; ++r)
+      if (JAC || (r & 3) == q) tv[(long long)r * M + i] = t[r];
+  }
 }
 
 __global__ void __launch_bounds__(256)
@@ -243,7 +463,7 @@ tv_pair_kernel(const float* __restrict__ px, const float* __restrict__ py,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
   const float x = px[i], y = py[i], w = yaw[i];
-  const Cell c = cell_setup(g, x, y, w, false);
+  const Cell<long long> c = cell_setup<long long>(g, x, y, w, false);
   const long long last = g.ncells - 1;
   // corners (x0,y0), (x0,y1), (x1,y0), (x1,y1); row = (z,sig,zb0,zb1) at
   // yaw w, then the same at w+1 (with_pair_table)
@@ -314,6 +534,36 @@ Geom make_geom(int nx, int ny, int nyaw, float res, float yres, float ox,
 }
 
 constexpr int kThreads = 256;
+// K1's blocks: more, smaller blocks spread a launch below a few waves more
+// evenly over the SMs (3-5% at the planning step's 43,520 lookups, even at
+// the headline's; chip_studies/k1_ablation.py)
+constexpr int kK1Block = 128;
+
+template <bool EXACT, bool JAC, typename Idx>
+int launch_packed16(const float* px, const float* py, const float* yaw,
+                    const uint4* table, float* tv, float* jac, int M,
+                    const Geom& g, bool quad, cudaStream_t stream) {
+  const long long threads = quad ? 4LL * M : (long long)M;
+  const unsigned blocks = (unsigned)((threads + kK1Block - 1) / kK1Block);
+  if (quad)
+    tv_packed16_quad<EXACT, JAC, Idx><<<blocks, kK1Block, 0, stream>>>(
+        px, py, yaw, table, tv, jac, M, g);
+  else
+    tv_packed16_thread<EXACT, JAC, Idx><<<blocks, kK1Block, 0, stream>>>(
+        px, py, yaw, table, tv, jac, M, g);
+  return (int)cudaGetLastError();
+}
+
+template <bool EXACT, bool JAC>
+int launch_packed16_idx(const float* px, const float* py, const float* yaw,
+                        const uint4* table, float* tv, float* jac, int M,
+                        const Geom& g, bool idx32, bool quad,
+                        cudaStream_t stream) {
+  return idx32 ? launch_packed16<EXACT, JAC, int>(px, py, yaw, table, tv,
+                                                   jac, M, g, quad, stream)
+               : launch_packed16<EXACT, JAC, long long>(
+                     px, py, yaw, table, tv, jac, M, g, quad, stream);
+}
 
 }  // namespace
 
@@ -322,18 +572,33 @@ extern "C" {
 // Each launcher enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 = launched).  Pointers are device pointers; the
 // caller checks device, dtype, shape and contiguity.
+//
+// K1: `idx32` selects 32-bit index math (the caller's promise that the
+// table has fewer than 2^31 16-byte words, refused otherwise), `quad` a
+// quad of lanes per sample over a thread per sample.
 int terrain_tv_packed16(const float* px, const float* py, const float* yaw,
                         const void* table, float* tv, float* jac, int M,
                         int nx, int ny, int nyaw, float res, float yres,
                         float ox, float oy, float oyaw, float half_res,
                         float half_yres, float lo_x, float hi_x, float lo_y,
-                        float hi_y, int exact, int want_jac, void* stream) {
+                        float hi_y, int exact, int want_jac, int idx32,
+                        int quad, void* stream) {
   const Geom g = make_geom(nx, ny, nyaw, res, yres, ox, oy, oyaw, half_res,
                            half_yres, lo_x, hi_x, lo_y, hi_y);
-  const int blocks = (M + kThreads - 1) / kThreads;
-  tv_packed16_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      px, py, yaw, (const uint4*)table, tv, jac, M, g, exact, want_jac);
-  return (int)cudaGetLastError();
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  if (idx32 && 4 * g.ncells >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const uint4* t = (const uint4*)table;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (exact)
+    return want_jac ? launch_packed16_idx<true, true>(px, py, yaw, t, tv, jac,
+                                                      M, g, idx32, quad, s)
+                    : launch_packed16_idx<true, false>(px, py, yaw, t, tv,
+                                                       jac, M, g, idx32, quad,
+                                                       s);
+  return want_jac ? launch_packed16_idx<false, true>(px, py, yaw, t, tv, jac,
+                                                     M, g, idx32, quad, s)
+                  : launch_packed16_idx<false, false>(px, py, yaw, t, tv, jac,
+                                                      M, g, idx32, quad, s);
 }
 
 int terrain_tv_pair(const float* px, const float* py, const float* yaw,

@@ -9,19 +9,26 @@ iterations of the loop body of the JAX package's `solve_qp`
 (`solver/admm_qp.py:295-348`, adaptive rho off) and freezes a lane once its
 termination test holds or its count reaches `max_iter`.  The kernel is one
 thread block per lane with the loop inside; the twin is the same arithmetic
-as batched tensor operations with a `done` mask.  The kernel has two
-instantiations of one design, picked by shape: one compiled for the
-condensed tracking QP (n = 60, m = 118) and one for run-time sizes.  The wrapper runs the twin
+as batched tensor operations with a `done` mask.  The wrapper runs the twin
 only for tensors that lie on the CPU; for CUDA tensors it launches the
-kernel on PyTorch's current stream or raises, and never falls back.  The
-kernel is float32 only; float64 exists on the CPU path.  It keeps the lane's
-P, A and inverse in shared memory, so it serves shapes up to
-`shared_bytes(n, m) <= MAX_SHARED_BYTES` (the condensed tracking QP, n = 60,
-m = 118, takes 61,992 bytes; the largest condensed shape is n = 116,
-m = 230; the full QP, n = 150, m = 268, does not fit and is refused).  No
-gradient: nothing differentiates through the QP.
+kernel on PyTorch's current stream or raises, and never falls back.
 
-`launches` counts kernel launches by name; only the wrapper adds to it.
+The kernel has three instantiations, and `variant(n, m, dtype)` picks one
+by shape and dtype before the launch:
+- "fixed": float32 at n = 60, m = 118 (the condensed tracking QP), compiled
+  for its shape, P, A and the inverse in shared memory;
+- "runtime": the same design for the other float32 shapes whose lane fits
+  in a block's shared memory (`shared_bytes(n, m) <= MAX_SHARED_BYTES`; the
+  largest condensed shape, n = 116, m = 230, does);
+- "global": every other float32 shape, such as the full tracking QP
+  (n = 150, m = 208), and every float64 QP; P and A are read from device
+  memory, the inverse is in shared memory when it fits
+  (`global_shared_bytes`).
+No gradient: nothing differentiates through the QP.
+
+`launches` counts kernel launches: "admm_iterations" every launch of K6,
+whichever instantiation, and "admm_iterations_global" the launches of the
+global one among them; only the wrapper adds to it.
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ import torch
 
 from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 
-launches = {"admm_iterations": 0}
+# "admm_iterations" counts every launch of K6, "admm_iterations_global"
+# the launches of the global-memory instantiation among them
+launches = {"admm_iterations": 0, "admm_iterations_global": 0}
 
 # bytes of shared memory one thread block can have on sm_90
 MAX_SHARED_BYTES = 232448
@@ -96,13 +105,49 @@ def shared_bytes(n: int, m: int) -> int:
     return 4 * ((2 * n + m) * ld + 3 * ld + 3 * n + 7 * m + 4 * _WARPS)
 
 
+def global_shared_bytes(n: int, m: int, dtype) -> tuple:
+    """(bytes, minv_resident) of a lane in the global variant: the
+    reduction scratch, seven n-vectors and seven m-vectors, with the
+    inverse when all of it fits in MAX_SHARED_BYTES
+    (`global_shared_bytes` of `csrc/admm_qp.cu`).  bytes is 0 when not even
+    the vectors fit."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    vec = elt * (4 * _WARPS + 7 * n + 7 * m)
+    if vec + elt * n * n <= MAX_SHARED_BYTES:
+        return vec + elt * n * n, True
+    return (vec if vec <= MAX_SHARED_BYTES else 0), False
+
+
+def variant(n: int, m: int, dtype) -> str:
+    """The instantiation of K6 that serves an (n, m) QP of `dtype` on the
+    card: "fixed", "runtime" or "global" (see the module's docstring).
+    Raises TypeError for a dtype other than float32 and float64."""
+    if dtype == torch.float32:
+        if (n, m) == FIXED_SHAPE:
+            return "fixed"
+        if shared_bytes(n, m) <= MAX_SHARED_BYTES:
+            return "runtime"
+        return "global"
+    if dtype == torch.float64:
+        return "global"
+    raise TypeError(f"admm_iterations: no kernel for {dtype}; float32 and "
+                    "float64 are served")
+
+
 def _declare(lib):
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_double
     lib.admm_iterations.argtypes = [p] * 28 + [i, i, i, f, f, f, f, f, i, i,
                                                p]
     lib.admm_iterations.restype = i
     lib.admm_shared_bytes.argtypes = [i, i]
     lib.admm_shared_bytes.restype = ctypes.c_longlong
+    lib.admm_iterations_global.argtypes = [p] * 28 + [i, i, i, i, d, d, d,
+                                                      d, d, i, i, p]
+    lib.admm_iterations_global.restype = i
+    lib.admm_global_shared_bytes.argtypes = [i, i, i,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.admm_global_shared_bytes.restype = ctypes.c_longlong
     lib.admm_error_string.argtypes = [i]
     lib.admm_error_string.restype = ctypes.c_char_p
 
@@ -185,18 +230,32 @@ def admm_iterations(d: ADMMData, s: ADMMState, *, sigma: float, alpha: float,
                     n_iters: int) -> ADMMState:
     """K6: advance every lane that is not done by at most `n_iters` ADMM
     iterations.  Returns a new state; `d` and `s` are left as they are."""
-    dev = d.P.device
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               max_iter=max_iter, n_iters=n_iters)
-    if dev.type == "cpu":
+    if d.P.device.type == "cpu":
         return admm_iterations_twin(d, s, **kw)
+    if d.P.dim() != 3 or d.A.dim() != 3:
+        raise ValueError("admm_iterations: P must be [B, n, n] and A "
+                         "[B, m, n]")
+    return launch_variant(variant(d.P.shape[1], d.A.shape[1], d.P.dtype),
+                          d, s, **kw)
+
+
+def launch_variant(which: str, d: ADMMData, s: ADMMState, *, sigma: float,
+                   alpha: float, eps_abs: float, eps_rel: float,
+                   max_iter: int, n_iters: int) -> ADMMState:
+    """Launch the named instantiation of K6 on CUDA tensors
+    (`admm_iterations` names the one `variant` picks; the card tests name
+    the global one at shapes the others serve, to hold it to the twin
+    there).  Raises where that instantiation does not take the QP."""
+    dev = d.P.device
     if dev.type != "cuda":
         raise ValueError(f"admm_iterations: no kernel for device {dev}")
     if d.P.dim() != 3 or d.A.dim() != 3:
         raise ValueError("admm_iterations: P must be [B, n, n] and A "
                          "[B, m, n]")
     B, n, m = d.P.shape[0], d.P.shape[1], d.A.shape[1]
-    f32 = torch.float32
+    dtype = d.P.dtype
     for name, t, shape in [
             ("P", d.P, (B, n, n)), ("q", d.q, (B, n)), ("A", d.A, (B, m, n)),
             ("l", d.l, (B, m)), ("u", d.u, (B, m)),
@@ -206,28 +265,38 @@ def admm_iterations(d: ADMMData, s: ADMMState, *, sigma: float, alpha: float,
             ("y", s.y, (B, m)), ("r_prim", s.r_prim, (B,)),
             ("r_dual", s.r_dual, (B,)), ("prim_norm", s.prim_norm, (B,)),
             ("dual_norm", s.dual_norm, (B,))]:
-        _check(t, name, shape, f32, dev)
+        _check(t, name, shape, dtype, dev)
     _check(s.it, "it", (B,), torch.int32, dev)
     _check(s.done, "done", (B,), torch.bool, dev)
-    need = shared_bytes(n, m)
-    if need > MAX_SHARED_BYTES:
+    # the global variant takes every shape the others take
+    if which not in (variant(n, m, dtype), "global"):
+        raise ValueError(f"admm_iterations: the {which!r} kernel does not "
+                         f"take an (n={n}, m={m}) {dtype} QP")
+    if which == "global" and global_shared_bytes(n, m, dtype)[0] == 0:
         raise ValueError(
-            f"admm_iterations: a lane of an (n={n}, m={m}) QP needs {need} "
-            f"bytes of shared memory, a thread block has {MAX_SHARED_BYTES}; "
-            "the kernel keeps P, A and the inverse resident and serves no "
-            "larger shape (condense the QP)")
+            f"admm_iterations: the vectors of an (n={n}, m={m}) QP do not "
+            f"fit in the {MAX_SHARED_BYTES} bytes of a block's shared "
+            "memory")
     if B == 0:
         return s
     out = ADMMState(*[torch.empty_like(t) for t in s])
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: t.data_ptr()
-    err = lib.admm_iterations(
-        *[ptr(t) for t in d], *[ptr(t) for t in s], *[ptr(t) for t in out],
-        B, n, m, float(sigma), float(alpha), float(1 - alpha),
-        float(eps_abs), float(eps_rel), int(max_iter), int(n_iters), stream)
+    ptrs = [t.data_ptr() for t in (*d, *s, *out)]
+    if which == "global":
+        err = lib.admm_iterations_global(
+            *ptrs, B, n, m, int(dtype == torch.float64), float(sigma),
+            float(alpha), float(1 - alpha), float(eps_abs), float(eps_rel),
+            int(max_iter), int(n_iters), stream)
+    else:
+        err = lib.admm_iterations(
+            *ptrs, B, n, m, float(sigma), float(alpha), float(1 - alpha),
+            float(eps_abs), float(eps_rel), int(max_iter), int(n_iters),
+            stream)
     if err != 0:
         msg = lib.admm_error_string(err).decode()
         raise RuntimeError(f"admm_iterations launch failed: {msg} ({err})")
     launches["admm_iterations"] += 1
+    if which == "global":
+        launches["admm_iterations_global"] += 1
     return out

@@ -15,6 +15,7 @@ it, one per launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,10 +29,32 @@ def reset_launches():
         launches[k] = 0
 
 
+def index_bits(table_words16: int) -> int:
+    """Width of K1's index math for a table of `table_words16` 16-byte
+    words: 32 when every word is addressable with a 32-bit int (every map
+    the planner builds: the hill's full table is 10,240,000 words), 64
+    otherwise."""
+    return 32 if table_words16 < 2 ** 31 else 64
+
+
+LAYOUTS = ("thread", "quad")
+# threads of a block of K1 (kK1Block of csrc/terrain_lookup.cu)
+_BLOCK = 128
+
+
+def packed16_layout(M: int, sms: int) -> str:
+    """K1's layout for M lookups on a card of `sms` SMs: "thread" (a thread
+    per sample) while that gives every SM a block or more, "quad" (four
+    lanes per sample, which shortens one sample's chain) below.  On the
+    card (`PERF.md` §6) the quad wins at the pipeline's step (M = 5,760)
+    and loses from the planning step's (M = 43,520) up."""
+    return "thread" if M > sms * _BLOCK else "quad"
+
+
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geom = [i, i, i] + [f] * 11
-    lib.terrain_tv_packed16.argtypes = [p] * 6 + [i] + geom + [i, i, p]
+    lib.terrain_tv_packed16.argtypes = [p] * 6 + [i] + geom + [i, i, i, i, p]
     lib.terrain_tv_packed16.restype = i
     lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + geom + [i, p]
     lib.terrain_tv_pair.restype = i
@@ -41,6 +64,11 @@ def _declare(lib):
 
 LIBRARY = CudaLibrary("terrain_lookup", _declare)
 _library = LIBRARY.load
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_poses(px, py, yaw):
@@ -86,8 +114,23 @@ def _raise_on(lib, err, name):
 def terrain_tv_packed16(table, geom, px, py, yaw, exact: bool,
                         want_jac: bool):
     """K1: tv [7, M] (and J [7, 3, M] when `want_jac`) from the f16 packed
-    table [2*Ncells, 8] int32.  `geom` is `terrain.grid.kernel_geometry`."""
+    table [2*Ncells, 8] int32.  `geom` is `terrain.grid.kernel_geometry`.
+    The index width comes from the table size (`index_bits`) and the layout
+    from M and the card (`packed16_layout`)."""
     _check_poses(px, py, yaw)
+    return _launch_packed16(
+        table, geom, px, py, yaw, exact, want_jac,
+        layout=packed16_layout(px.numel(), _sm_count(px.device)),
+        idx32=index_bits(table.numel() // 4) == 32)
+
+
+def _launch_packed16(table, geom, px, py, yaw, exact: bool, want_jac: bool,
+                     *, layout: str, idx32: bool):
+    """K1 in the named layout and index width (the wrapper picks both; the
+    card tests name each, to hold every instantiation to the twin)."""
+    _check_poses(px, py, yaw)
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
     nx, ny, nyaw = geom[:3]
     _check_table(table, 2 * nx * ny * nyaw, torch.int32, px.device)
     M = px.numel()
@@ -99,7 +142,7 @@ def terrain_tv_packed16(table, geom, px, py, yaw, exact: bool,
     err = lib.terrain_tv_packed16(
         px.data_ptr(), py.data_ptr(), yaw.data_ptr(), table.data_ptr(),
         tv.data_ptr(), jac.data_ptr() if want_jac else None, M, *geom,
-        int(exact), int(want_jac), stream)
+        int(exact), int(want_jac), int(idx32), int(layout == "quad"), stream)
     _raise_on(lib, err, "terrain_tv_packed16")
     launches["terrain_tv_packed16"] += 1
     return tv, jac

@@ -337,10 +337,9 @@ def mpc_step(now_state, xref, dref, output_prev, output_buff,
     du <= du_threshold or the pass cap.  now_state [B, 3], xref [B, 3, T],
     dref and output_prev [B, 2, T], output_buff [B, max(delay, 1), 2].
     The loop stops when every lane is done; a done lane is frozen.  On CUDA
-    tensors the QP goes through the ADMM kernel, which takes float32 and the
-    condensed QP (`cfg.qp_condense`, n = 2 (T - d) up to 116); float64 or the
-    full QP (`qp_condense=False`, n = 150 at T = 30) raise there and run on
-    the CPU only."""
+    tensors the QP goes through the ADMM kernel in float32 or float64, the
+    condensed QP (`cfg.qp_condense`, n = 2 (T - d)) and the full QP
+    (`qp_condense=False`, n = 150, m = 208 at T = 30) alike."""
     T, d = cfg.predict_steps, cfg.delay_num
     H = T - d
     dimx = 3 * H

@@ -228,11 +228,11 @@ def solve_qp(P, q, A, l, u, *, rho: float = 0.1, sigma: float = 1e-6,
     `max_iter` (the tracking loop's budget); the update sequence is the
     same.  On CUDA tensors the loop runs in the kernel K6, one launch per
     call (one per `adaptive_rho_interval` iterations with `adaptive_rho`).
-    A CUDA call must be float32 and small enough for the kernel's shared
-    memory (`kernels.admm.shared_bytes(n, m) <= MAX_SHARED_BYTES`: the
-    condensed tracking QP up to n = 116, m = 230); float64 and larger QPs,
-    such as the full tracking QP (n = 150, m = 268), raise there and are
-    served on the CPU only."""
+    A CUDA call takes float32 or float64 at any shape: the kernel's
+    instantiation is chosen by `kernels.admm.variant(n, m, dtype)`, the
+    shared-memory ones for float32 QPs that fit (the condensed tracking QP)
+    and the global-memory one for the rest (the full tracking QP, n = 150,
+    m = 208, and every float64 QP)."""
     B = q.shape[0]
     data, state, D, E, is_eq = setup_qp(P, q, A, l, u, rho=rho, sigma=sigma,
                                         x0=x0, y0=y0, ruiz=ruiz)

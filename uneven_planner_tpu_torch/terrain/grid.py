@@ -10,11 +10,15 @@ rows so that one lookup corner is one DRAM sector on the GPU:
   data_pair      [Ncells, 8] data dtype: cell (x, y, w) holds the RXS2 value
                  at yaw w and at yaw (w+1) mod Nyaw; the transpose of the JAX
                  package's channel-major `data_pair`, word for word.
-  data_packed16  [2*Ncells, 8] int32: words 0-5 of row (x, y, w) pack
-                 {sigma, zb0, zb1} x {y, y+1} as f16 pairs (value at yaw w in
-                 the high half, at w+1 in the low half); rows Ncells + i hold
-                 the f16 residuals; words 6-7 are zero padding.  Words 0-5
-                 are the JAX package's `data_packed16` bits, transposed.
+  data_packed16  [2*Ncells, 8] int32: words 0-5 of the row of cell
+                 (x, y, w) pack {sigma, zb0, zb1} x {y, y+1} as f16 pairs
+                 (value at yaw w in the high half, at w+1 in the low half);
+                 rows Ncells + i hold the f16 residuals; words 6-7 are zero
+                 padding.  Cells are ordered with x fastest (row
+                 (y * Nyaw + w) * Nx + x, `packed16_row`), so the two x
+                 corners of a lookup are neighbouring rows.  Words 0-5 are
+                 the JAX package's `data_packed16` bits, transposed and
+                 reordered so (`packed16_x_fastest`).
 
 Each lookup has a hand-written CUDA kernel (`csrc/terrain_lookup.cu`) and a
 plain PyTorch twin here that computes the same pair (tv, J): the 7 terrain
@@ -174,7 +178,26 @@ def with_packed_f16(grid: TerrainGrid) -> TerrainGrid:
     packed = torch.zeros((2 * ncells, 8), dtype=torch.int32, device=d.device)
     packed[:ncells, :6] = words(his)
     packed[ncells:, :6] = words(los)
-    return grid.replace(data_packed16=packed)
+    return grid.replace(
+        data_packed16=packed16_x_fastest(packed, grid.voxel_num))
+
+
+def packed16_x_fastest(rows, voxel_num):
+    """Rows of a packed table [2*Ncells, k] (tensor or numpy array) in cell
+    order (x, y, w), hi half then residual half, reordered with x fastest:
+    the cell (x, y, w) moves to row `packed16_row(x, y, w)` of its half."""
+    nx, ny, nyaw = voxel_num
+    k = rows.shape[-1]
+    split = rows.reshape(2, nx, ny, nyaw, k)
+    if isinstance(rows, torch.Tensor):
+        return split.permute(0, 2, 3, 1, 4).reshape(-1, k).contiguous()
+    return split.transpose(0, 2, 3, 1, 4).reshape(-1, k).copy()
+
+
+def packed16_row(ix, iy, iw, voxel_num):
+    """Row of cell (ix, iy, iw) in the hi half of `data_packed16`."""
+    nx, ny, nyaw = voxel_num
+    return (iy * nyaw + iw) * nx + ix
 
 
 def _u16_to_f32(bits: torch.Tensor) -> torch.Tensor:
@@ -316,8 +339,9 @@ def packed16_tv_jac(grid: TerrainGrid, px, py, yaw, exact: bool,
     res, yres = grid.xy_resolution, grid.yaw_resolution
     k = _cell(grid, px, py, yaw, low_y_rule=True)
     M = px.shape[0]
-    rows = torch.stack([(k["ix0"] * ny + k["iy0"]) * nyaw + k["iw"],
-                        (k["ix1"] * ny + k["iy0"]) * nyaw + k["iw"]], 1)
+    rows = torch.stack([
+        packed16_row(k["ix0"], k["iy0"], k["iw"], grid.voxel_num),
+        packed16_row(k["ix1"], k["iy0"], k["iw"], grid.voxel_num)], 1)
 
     def gather(r):                                      # -> 2 x [M, 2, 6]
         r = r.reshape(-1).clamp(0, 2 * ncells - 1)
