@@ -20,8 +20,10 @@ Phases, each of which must pass (exit code 1 otherwise):
               at the TPU probe's shape and at a large one, the ADMM loop on
               the QPs of a real tracking tick (256 lanes, warm-started) and
               on random box QPs, with a split run held bit for bit, and its
-              global-memory variant on the full QP of a real tick (n = 150,
-              m = 208; 256 lanes in fp32, 64 in fp64);
+              sparse and global-memory variants side by side on the full QP
+              of a real tick (n = 150, m = 208; 256 lanes in fp32, 64 in
+              fp64), then the global one on its own path (solve_qp on dense
+              QPs of that shape);
   4. small    8 lanes solved on the card (fp32, kernels) against the same
               lanes on the CPU (fp64, plain twins);
   5. headline the main path at full width: hill grid with its f16 table,
@@ -42,8 +44,9 @@ Phases, each of which must pass (exit code 1 otherwise):
   9. track-ref 4 lanes of figure-eight tracking, 40 ticks, on the card
               (fp32, ADMM kernel) against the CPU (fp32, plain twin);
  10. track-full-ref  4 lanes x 40 ticks with the full QP
-              (qp_condense=False) on the card (fp32, K6's global variant)
-              against the CPU (fp64, plain twin), held by outcome;
+              (qp_condense=False) on the card in fp32 and in fp64 (K3/K4
+              on 8-byte elements; K6's sparse variant) against the CPU
+              (fp64, plain twins), fp32 held by outcome, fp64 to 1e-6;
  11. mpc      the tracking MPC alone at full width: 256 lanes x 256 ticks
               on the figure-eight; ticks/s, tracking error, QP iteration
               statistics, launch counts, and a profile of a few ticks;
@@ -106,15 +109,17 @@ TOL_TANH_ABS = 5e-7
 # residual first dips under its limit depends on the last bits) the
 # solutions within TOL_ADMM_REL_STOPPED and the counts only printed.
 TOL_ADMM_REL = 5e-5
-# the global variant against its twin at a fixed count on the full QP of a
-# real tick.  float64: rounding of two summation orders over 400
-# iterations.  float32: on that QP each float32 order of summation strays up
-# to 1.2e-4 from the float64 iterate in y, so TOL_ADMM_REL cannot hold.  The
-# limit is twice the largest of 16 readings of the kernel against the twin
-# (1.22e-4: 4 seeds x 4 ticks, `chip_studies/k6_global_tolerance.py`, on an
-# H100 80GB HBM3, 700 W), and 186 times below the nearest lower-precision
-# control (P, A and the inverse rounded to TF32: 0.046), which
-# `admm_global_rows` checks on every run.
+# the sparse and global variants against their twin at a fixed count on
+# the full QP of a real tick.  float64: rounding of two summation orders
+# over 400 iterations.  float32: on that QP each float32 order of summation
+# strays up to 1.2e-4 from the float64 iterate in y, so TOL_ADMM_REL cannot
+# hold.  The limit was set as twice the largest of 16 readings of the
+# global kernel against the twin (1.22e-4: 4 seeds x 4 ticks,
+# `chip_studies/k6_global_tolerance.py`, on an H100 80GB HBM3, 700 W); the
+# sparse kernel's 16 readings reach 1.69e-4 (twice that would be 3.4e-4),
+# so the limit stays where every reading of both lies under it, 186 times
+# below the nearest lower-precision control (P, A and the inverse rounded
+# to TF32: 0.046), which `admm_full_qp_rows` checks on every run.
 TOL_ADMM_REL_F64 = 1e-10
 TOL_ADMM_REL_GLOBAL_F32 = 2.5e-4
 TOL_ADMM_REL_STOPPED = 1e-3
@@ -133,6 +138,11 @@ MAX_TRACK_ERR = 0.05      # metres, mean over a lane's pre-goal ticks
 # the full and the condensed QP share one optimum: their tracking errors
 # over the same ticks may differ by at most this (metres)
 MAX_FULL_VS_CONDENSED_ERR = 0.002
+# full-QP tracking in float64, card against CPU over 4 lanes x 40 ticks:
+# states (m, rad) and commands; the two sum in different orders, so a QP
+# may stop an iteration apart at its 1e-6 test
+TRACK_F64_STATE_TOL = 1e-6
+TRACK_F64_CMD_TOL = 1e-5
 # phase names for --phases, in the order a full run takes them
 PHASES = ("terrain", "gather", "tanh", "admm", "small-reference",
           "headline", "plan-reference", "plan", "track-reference",
@@ -577,14 +587,19 @@ def phase_gather_kernels(device):
     # the piece coefficients `eval_traj` reads, [B * pieces, 6 * Dim] f32 by
     # int64: 30 reference samples per lane on every tick (figure-eight: 256
     # lanes x 16 pieces; pipeline: 64 lanes x 10 xy and 20 yaw pieces) and
-    # the pipeline's 1024 samples per lane of `non_hol_error`.
+    # the pipeline's 1024 samples per lane of `non_hol_error`; and the
+    # figure-eight's in f64 (a float64 rollout).
+    f32, f64 = torch.float32, torch.float64
     track_rows = [
-        (f"{path}: [{B * n_p}, {6 * dim}] f32, int64", (B * n_p, 6 * dim),
-         B * T)
-        for path, B, T, pieces in [
-            ("mpc reference", MPC_LANES, 30, ((16, 2), (16, 1))),
-            ("pipeline reference", PIPE_LANES, 30, ((10, 2), (20, 1))),
-            ("pipeline non_hol_error", PIPE_LANES, 1024, ((10, 2), (20, 1)))]
+        (f"{path}: [{B * n_p}, {6 * dim}] {name}, int64", (B * n_p, 6 * dim),
+         B * T, dtype)
+        for path, B, T, pieces, dtype, name in [
+            ("mpc reference", MPC_LANES, 30, ((16, 2), (16, 1)), f32, "f32"),
+            ("mpc reference", MPC_LANES, 30, ((16, 2), (16, 1)), f64, "f64"),
+            ("pipeline reference", PIPE_LANES, 30, ((10, 2), (20, 1)), f32,
+             "f32"),
+            ("pipeline non_hol_error", PIPE_LANES, 1024, ((10, 2), (20, 1)),
+             f32, "f32")]
         for n_p, dim in pieces]
     m_occ_pipe = PIPE_LANES * (10240 * 3 + 1024 * 64)
     for label, table, M, idt in [
@@ -605,8 +620,8 @@ def phase_gather_kernels(device):
             ("pipeline RXS2 rows: [2560000, 4] f32",
              rand((200 * 200 * 64, 4)), PIPE_LANES * 4096 * 8,
              torch.int32)] + [
-            (label, rand(shape), M, torch.int64)
-            for label, shape, M in track_rows]:
+            (label, rand(shape).to(dtype), M, torch.int64)
+            for label, shape, M, dtype in track_rows]:
         N = table.shape[0]
         idx = _edge_indices(N, (M,), 11, idt, device)
         clipped = idx.long().clamp(0, N - 1)
@@ -622,30 +637,34 @@ def phase_gather_kernels(device):
 
     # K4 gather_along: x [B, N], idx [B, K] (axis 1) or x [N, C], idx [K, C].
     # The tracking rows are `locate_piece`'s reads of the cumulative piece
-    # times, [B, pieces] by [B, samples] int64, beside K3's above.
+    # times, [B, pieces] by [B, samples] int64, beside K3's above (the
+    # figure-eight's in f64 too).
     track_along = [
-        (f"{path} locate_piece: [{B}, {n_p}] by [{B}, {T}]", (B, n_p),
-         (B, T), 1, torch.int64)
-        for path, B, T, pieces in [
-            ("mpc reference", MPC_LANES, 30, (16,)),
-            ("pipeline reference", PIPE_LANES, 30, (10, 20)),
-            ("pipeline non_hol_error", PIPE_LANES, 1024, (10, 20))]
+        (f"{path} locate_piece: [{B}, {n_p}] {name} by [{B}, {T}]",
+         (B, n_p), (B, T), 1, torch.int64, dtype)
+        for path, B, T, pieces, dtype, name in [
+            ("mpc reference", MPC_LANES, 30, (16,), f32, "f32"),
+            ("mpc reference", MPC_LANES, 30, (16,), f64, "f64"),
+            ("pipeline reference", PIPE_LANES, 30, (10, 20), f32, "f32"),
+            ("pipeline non_hol_error", PIPE_LANES, 1024, (10, 20), f32,
+             "f32")]
         for n_p in pieces]
-    for label, xs, ishape, axis, idt in [
+    for label, xs, ishape, axis, idt, xdt in [
             ("e5_dyngather lane: [4096, 128] axis 1", (4096, 128),
-             (4096, 128), 1, torch.int32),
+             (4096, 128), 1, torch.int32, f32),
             ("e5_dyngather sub: [4096, 128] axis 0", (4096, 128),
-             (4096, 128), 0, torch.int32),
+             (4096, 128), 0, torch.int32, f32),
             ("path pool[sel]: [256, 8192] by [256, 1024]",
-             (PLAN_BATCH, 8192), (PLAN_BATCH, 1024), 1, torch.int64),
+             (PLAN_BATCH, 8192), (PLAN_BATCH, 1024), 1, torch.int64, f32),
             ("path best_g[cells]: [256, 440000] by [256, 10240]",
-             (PLAN_BATCH, 440000), (PLAN_BATCH, 10240), 1, torch.int32),
+             (PLAN_BATCH, 440000), (PLAN_BATCH, 10240), 1, torch.int32,
+             f32),
             ("pipeline pool[sel]: [64, 8192] by [64, 1024]",
-             (PIPE_LANES, 8192), (PIPE_LANES, 1024), 1, torch.int64),
+             (PIPE_LANES, 8192), (PIPE_LANES, 1024), 1, torch.int64, f32),
             ("pipeline best_g[cells]: [64, 440000] by [64, 10240]",
-             (PIPE_LANES, 440000), (PIPE_LANES, 10240), 1, torch.int32)] \
-            + track_along:
-        x = rand(xs)
+             (PIPE_LANES, 440000), (PIPE_LANES, 10240), 1, torch.int32,
+             f32)] + track_along:
+        x = rand(xs).to(xdt)
         N = xs[axis]
         idx = _edge_indices(N, ishape, 13, idt, device)
         clipped = idx.long().clamp(0, N - 1)
@@ -1080,17 +1099,18 @@ def _round_mantissa(t, bits):
     return ((i + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
 
 
-def global_f32_readings(d, st, n_iters, kw):
-    """K6's global kernel in float32 against the twin over `n_iters`
-    iterations with the termination test off (`kw`), and the readings its
-    gate was set from: kernel and twin each against the twin run in
-    float64 on the same data, and two controls in lower precision, the
-    twin with P, A and the inverse rounded to TF32's and to bfloat16's
-    mantissa, each against the twin.  Distances relative to the lane's
-    largest entry; a control's is the larger of x's and y's."""
+def k6_f32_readings(d, st, n_iters, kw, which, nnz=None):
+    """The named instantiation of K6 ("sparse" or "global") in float32
+    against the twin over `n_iters` iterations with the termination test
+    off (`kw`), and the readings its gate was set from: kernel and twin
+    each against the twin run in float64 on the same data, and two
+    controls in lower precision, the twin with P, A and the inverse rounded
+    to TF32's and to bfloat16's mantissa, each against the twin.  Distances
+    relative to the lane's largest entry; a control's is the larger of x's
+    and y's."""
     import torch
     from uneven_planner_tpu_torch.kernels import admm
-    got = admm.launch_variant("global", d, st, n_iters=n_iters, **kw)
+    got = admm.launch_variant(which, d, st, n_iters=n_iters, nnz=nnz, **kw)
     want = admm.admm_iterations_twin(d, st, n_iters=n_iters, **kw)
     cast = lambda t, f: f(t) if t.is_floating_point() else t
     ref = admm.admm_iterations_twin(
@@ -1116,18 +1136,26 @@ def global_f32_readings(d, st, n_iters, kw):
     return out
 
 
-def admm_global_rows(device):
-    """K6's global variant against its twin on the full QP of a real tick:
-    256 lanes in float32 and the first 64 of them in float64, over a fixed
-    count of iterations (no termination test), every lane at that count,
-    and 25 + 375 iterations equal to 400 bit for bit.  x and y within
-    TOL_ADMM_REL_GLOBAL_F32 (float32) or TOL_ADMM_REL_F64 (float64) of the
-    twin; in float32 the two lower-precision controls of
-    `global_f32_readings` must lie beyond that limit, or the gate could not
-    tell a kernel that lost precision.  Times: the kernel and the twin (one
-    captured graph) on the path's run, beside the bound for the iterations
-    this data needs and the time its P and A take to stream from device
-    memory once an iteration."""
+def admm_full_qp_rows(device):
+    """K6's sparse and global instantiations against the twin on the full
+    QP of a real tick: 256 lanes in float32 and the first 64 of them in
+    float64, over a fixed count of iterations (no termination test), every
+    lane at that count, and 25 + 375 iterations equal to 400 bit for bit.
+    x and y within TOL_ADMM_REL_GLOBAL_F32 (float32) or TOL_ADMM_REL_F64
+    (float64) of the twin; in float32 the two lower-precision controls of
+    `k6_f32_readings` must lie beyond that limit, or the gate could not
+    tell a kernel that lost precision.  `variant` must pick "sparse" for
+    this QP.  Times, both instantiations in the same call on the same data
+    (each named through `launch_variant`): the kernel and the twin (one
+    captured graph) on the path's run, beside two bounds for the iterations
+    this data needs: `bound_ms` from the nonzeros (2 (n^2 + 4 nnz(A) +
+    nnz(P)) flops an iteration; Minv, the compressed P and A and the
+    vectors moved once) and `dense_bound_ms` from the dense products
+    (2 (4 m n + 2 n^2) flops; the dense matrices moved once), and the time
+    the dense P and A take to stream from device memory once an iteration.
+    Then the global instantiation's own path: `solve_qp` on dense QPs of
+    the full QP's shape, which no compressed lane fits, with its launches
+    counted."""
     import torch
     from uneven_planner_tpu_torch.kernels import admm
     from uneven_planner_tpu_torch.solver import admm_qp
@@ -1148,55 +1176,74 @@ def admm_global_rows(device):
                                  x0=xw, y0=yw)
         d, st = setup.data, setup.state
         B, n, m = d.P.shape[0], d.P.shape[1], d.A.shape[1]
+        nnz = admm.nonzero_counts(d)
         fixed_kw = dict(path_kw, eps_abs=0.0, eps_rel=0.0)
-        if dtype == torch.float32:
-            fixed = global_f32_readings(d, st, budget, fixed_kw)
-        else:
-            got = admm.admm_iterations(d, st, n_iters=budget, **fixed_kw)
-            want = admm.admm_iterations_twin(d, st, n_iters=budget,
-                                             **fixed_kw)
-            fixed = dict(max_rel_err_x=_rel(got.x, want.x),
-                         max_rel_err_y=_rel(got.y, want.y),
-                         iters_differ=int((got.it != want.it).sum()),
-                         max_abs_err=float(max((got.x - want.x).abs().max(),
-                                               (got.y - want.y).abs().max())))
-        torch.cuda.synchronize()
-        run = admm.admm_iterations(d, st, n_iters=budget, **path_kw)
-        part = admm.admm_iterations(d, st, n_iters=25, **path_kw)
-        part = admm.admm_iterations(d, part, n_iters=budget - 25, **path_kw)
-        torch.cuda.synchronize()
-        split_equal = all(torch.equal(a, b) for a, b in zip(run, part))
-        its = run.it.long()
         elt = d.P.element_size()
-        flops = float(its.sum()) * 2 * (4 * m * n + 2 * n * n)
-        nbytes = elt * B * (2 * n * n + m * n + 2 * n + 4 * m + 1
-                            + 2 * (n + 2 * m + 6))
-        streamed = elt * float(its.sum()) * (2 * m * n + n * n)
         peak = PEAK_F32 if dtype == torch.float32 else PEAK_F64
-        kern = lambda: admm.admm_iterations(d, st, n_iters=budget, **path_kw)
+        io_words = 2 * n + 4 * m + 1 + 2 * (n + 2 * m + 6)
         twin = lambda: admm.admm_iterations_twin(d, st, n_iters=budget,
                                                  **path_kw)
-        v = dict(
-            name="admm_iterations_global", variant=admm.variant(n, m, dtype),
-            dtype=str(dtype).replace("torch.", ""),
-            shape=f"full-QP tick pass 1 (x warm, y = 0): {B} lanes, n = {n}, "
-            f"m = {m}, {str(dtype).replace('torch.', '')}, budget {budget}",
-            max_abs_err=fixed["max_abs_err"],
-            fixed_count=fixed, tolerance_rel=tol, split_equal=split_equal,
-            iters_mean=float(its.float().mean()), iters_max=int(its.max()),
-            at_budget_share=float((its >= budget).float().mean()),
-            finite=bool(torch.isfinite(run.x).all()),
-            ms=device_ms(kern, reps=5, inner=2),
-            plain_ms=device_ms(twin, reps=3, inner=1), library_ms=None,
-            bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
-            bound_by=("operations" if flops / peak >= nbytes / PEAK_BYTES
-                      else "bytes"),
-            streamed_bytes_ms=streamed / PEAK_BYTES * 1e3,
-            flops=flops, bytes=nbytes, streamed_bytes=streamed,
-            shared_bytes_per_lane=admm.global_shared_bytes(n, m, dtype)[0],
-            minv_in_shared_memory=admm.global_shared_bytes(n, m, dtype)[1])
-        log("# kernel " + json.dumps(v))
-        rows.append(v)
+        plain_ms = device_ms(twin, reps=3, inner=1)
+        for which in ("sparse", "global"):
+            run_kw = dict(nnz=nnz) if which == "sparse" else {}
+            launch = lambda n_iters, state=st: admm.launch_variant(
+                which, d, state, n_iters=n_iters, **run_kw, **path_kw)
+            if dtype == torch.float32:
+                fixed = k6_f32_readings(d, st, budget, fixed_kw, which,
+                                        **run_kw)
+            else:
+                got = admm.launch_variant(which, d, st, n_iters=budget,
+                                          **run_kw, **fixed_kw)
+                want = admm.admm_iterations_twin(d, st, n_iters=budget,
+                                                 **fixed_kw)
+                fixed = dict(
+                    max_rel_err_x=_rel(got.x, want.x),
+                    max_rel_err_y=_rel(got.y, want.y),
+                    iters_differ=int((got.it != want.it).sum()),
+                    max_abs_err=float(max((got.x - want.x).abs().max(),
+                                          (got.y - want.y).abs().max())))
+            torch.cuda.synchronize()
+            run = launch(budget)
+            part = launch(budget - 25, launch(25))
+            torch.cuda.synchronize()
+            split_equal = all(torch.equal(a, b) for a, b in zip(run, part))
+            its = float(run.it.long().sum())
+            flops = its * 2 * (n * n + 4 * nnz[0] + nnz[1])
+            nbytes = B * (elt * (n * n + io_words)
+                          + (elt + 2) * (nnz[0] + nnz[1]))
+            dense_flops = its * 2 * (4 * m * n + 2 * n * n)
+            dense_bytes = elt * B * (2 * n * n + m * n + io_words)
+            streamed = elt * its * (2 * m * n + n * n)
+            v = dict(
+                name=f"admm_iterations_{which}",
+                variant_picked=admm.variant(n, m, dtype, nnz),
+                dtype=str(dtype).replace("torch.", ""),
+                shape=f"full-QP tick pass 1 (x warm, y = 0): {B} lanes, "
+                f"n = {n}, m = {m}, {str(dtype).replace('torch.', '')}, "
+                f"budget {budget}",
+                nonzeros_a=nnz[0], nonzeros_p=nnz[1],
+                max_abs_err=fixed["max_abs_err"], fixed_count=fixed,
+                tolerance_rel=tol, split_equal=split_equal,
+                iters_mean=float(run.it.float().mean()),
+                iters_max=int(run.it.max()),
+                at_budget_share=float((run.it >= budget).float().mean()),
+                finite=bool(torch.isfinite(run.x).all()),
+                ms=device_ms(lambda: launch(budget), reps=5, inner=2),
+                plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+                bound_by=("operations" if flops / peak >= nbytes / PEAK_BYTES
+                          else "bytes"),
+                dense_bound_ms=max(dense_flops / peak,
+                                   dense_bytes / PEAK_BYTES) * 1e3,
+                streamed_bytes_ms=streamed / PEAK_BYTES * 1e3,
+                flops=flops, bytes=nbytes, dense_flops=dense_flops,
+                dense_bytes=dense_bytes, streamed_bytes=streamed,
+                shared_bytes_per_lane=(
+                    admm.sparse_shared_bytes(n, m, *nnz, dtype)
+                    if which == "sparse"
+                    else admm.global_shared_bytes(n, m, dtype)[0]))
+            log("# kernel " + json.dumps(v))
+            rows.append(v)
 
     def strays(v):
         f, tol = v["fixed_count"], v["tolerance_rel"]
@@ -1206,13 +1253,36 @@ def admm_global_rows(device):
                        for c in ("tf32", "bf16")))
 
     bad = [v for v in rows
-           if v["variant"] != "global" or strays(v)
+           if v["variant_picked"] != "sparse" or strays(v)
            or v["fixed_count"]["iters_differ"] or not v["split_equal"]
            or not v["finite"]]
     if bad:
-        raise RuntimeError(f"admm_iterations (global) disagrees with its "
-                           f"twin, or its gate cannot tell a lower "
+        raise RuntimeError(f"admm_iterations (sparse or global) disagrees "
+                           f"with its twin, or its gate cannot tell a lower "
                            f"precision: {bad}")
+
+    # the global instantiation's own path: solve_qp on dense QPs of the
+    # full QP's shape (no compressed lane fits), counted
+    dense = _random_box_qps(device, lanes=ADMM_F64_LANES, n=150, m=208)
+    reset_all_launches()
+    sol = admm_qp.solve_qp(*dense, rho=cfg.qp_rho, sigma=cfg.qp_sigma,
+                           alpha=cfg.qp_alpha, eps_abs=cfg.qp_abs_tol,
+                           eps_rel=cfg.qp_rel_tol, max_iter=cfg.qp_max_iter,
+                           polish=False, adaptive_rho=False,
+                           fixed_iters=budget)
+    launches = all_launches()
+    own = dict(path="solve_qp on dense box QPs of the full QP's shape: "
+               f"{ADMM_F64_LANES} lanes, n = 150, m = 208, float32",
+               launches=launches["admm_iterations_global"],
+               launches_sparse=launches["admm_iterations_sparse"],
+               finite=bool(torch.isfinite(sol.x).all()))
+    log("# admm-global-path " + json.dumps(own))
+    if own["launches"] != 1 or own["launches_sparse"] or not own["finite"]:
+        raise RuntimeError(f"the dense full-shape QP did not go through "
+                           f"K6's global instantiation once: {own}")
+    for v in rows:
+        if v["name"] == "admm_iterations_global":
+            v["own_path"] = own
     return rows
 
 
@@ -1330,7 +1400,7 @@ def phase_admm_kernel(device):
            or v["kkt"]["kernel"]["prim"] > 2 * v["kkt"]["twin"]["prim"] + 1e-5]
     if bad:
         raise RuntimeError(f"admm_iterations disagrees with its twin: {bad}")
-    return variants + admm_global_rows(device)
+    return variants + admm_full_qp_rows(device)
 
 
 # ---------------------------------------------------------------------------
@@ -1406,9 +1476,13 @@ def phase_track_reference(device):
 
 def phase_track_full_reference(device):
     """4 lanes of figure-eight tracking with the full QP
-    (`MPCConfig(qp_condense=False)`), 40 ticks: card (fp32, K6's global
-    variant) against CPU (fp64, plain twin), held by outcome as the
-    condensed run is: states within 2e-3 (m, rad), commands within 2e-2."""
+    (`MPCConfig(qp_condense=False)`), 40 ticks: the CPU in float64 (plain
+    twins) against the card in float32 (K6's sparse variant), held by
+    outcome as the condensed run is: states within 2e-3 (m, rad), commands
+    within 2e-2; and against the card in float64 (K3 and K4 on 8-byte
+    elements, K6's sparse variant), which must agree within
+    TRACK_F64_STATE_TOL and TRACK_F64_CMD_TOL.  Prints the QP iteration
+    counts of the three runs and the launches of each card run."""
     import numpy as np
     import torch
     from uneven_planner_tpu_torch.config import MPCConfig
@@ -1422,28 +1496,63 @@ def phase_track_full_reference(device):
     reset_all_launches()
     card = run(device, torch.float32)
     launches = all_launches()
+    reset_all_launches()
+    card64 = run(device, torch.float64)
+    launches64 = all_launches()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         cpu = run("cpu", torch.float64)
     finally:
         torch.set_num_threads(threads)
+    diff = lambda a, b: float((a.cpu().double() - b).abs().max())
+    k6 = lambda la: {k: la[k] for k in ("admm_iterations",
+                                        "admm_iterations_sparse",
+                                        "admm_iterations_global")}
     out = dict(lanes=4, ticks=40, qp="full (n = 150, m = 208)",
-               max_state_diff=float((card.states.cpu().double()
-                                     - cpu.states).abs().max()),
-               max_cmd_diff=float((card.cmds.cpu().double() - cpu.cmds)
-                                  .abs().max()),
+               max_state_diff=diff(card.states, cpu.states),
+               max_cmd_diff=diff(card.cmds, cpu.cmds),
                mean_err_card=card.mean_err.tolist(),
                mean_err_cpu=cpu.mean_err.tolist(),
                qp_iters_card=int(card.qp_iters.sum()),
                qp_iters_cpu=int(cpu.qp_iters.sum()),
-               admm_global_launches=launches["admm_iterations_global"])
+               launches_card=k6(launches),
+               float64=dict(
+                   max_state_diff=diff(card64.states, cpu.states),
+                   max_cmd_diff=diff(card64.cmds, cpu.cmds),
+                   tolerance=dict(state=TRACK_F64_STATE_TOL,
+                                  cmd=TRACK_F64_CMD_TOL),
+                   mean_err_card=card64.mean_err.tolist(),
+                   qp_iters_card=int(card64.qp_iters.sum()),
+                   qp_iters_cpu=int(cpu.qp_iters.sum()),
+                   qp_iters_per_pass_card=qp_statistics(card64)[
+                       "qp_iters_per_pass_mean"],
+                   qp_iters_per_pass_cpu=qp_statistics(cpu)[
+                       "qp_iters_per_pass_mean"],
+                   passes_card=int(card64.sqp_iters.sum()),
+                   passes_cpu=int(cpu.sqp_iters.sum()),
+                   launches_card=dict(
+                       k6(launches64), gather_rows=launches64["gather_rows"],
+                       gather_along=launches64["gather_along"])))
     log("# track-full-ref " + json.dumps(out))
+    f64 = out["float64"]
+    fails = []
     if not torch.isfinite(card.states).all() \
-            or out["max_state_diff"] > 2e-3 or out["max_cmd_diff"] > 2e-2 \
-            or out["admm_global_launches"] == 0:
-        raise RuntimeError(f"card full-QP tracking disagrees with the CPU: "
-                           f"{out}")
+            or out["max_state_diff"] > 2e-3 or out["max_cmd_diff"] > 2e-2:
+        fails.append("card fp32 full-QP tracking disagrees with the CPU")
+    if not torch.isfinite(card64.states).all() \
+            or not f64["max_state_diff"] <= TRACK_F64_STATE_TOL \
+            or not f64["max_cmd_diff"] <= TRACK_F64_CMD_TOL:
+        fails.append("card fp64 full-QP tracking disagrees with the CPU's")
+    for who, la in (("fp32", launches), ("fp64", launches64)):
+        if la["admm_iterations_sparse"] == 0 \
+                or la["admm_iterations_sparse"] != la["admm_iterations"]:
+            fails.append(f"not every K6 launch of the {who} run is sparse")
+    for name in ("gather_rows", "gather_along"):
+        if launches64[name] == 0:
+            fails.append(f"{name} was never launched in the fp64 run")
+    if fails:
+        raise RuntimeError(f"{'; '.join(fails)}: {out}")
     return out
 
 
@@ -1538,7 +1647,7 @@ def phase_mpc_full(device, smi):
     """The tracking MPC with the full QP at full width: figure_eight shared
     by 256 lanes with the MPC phase's start states, 64 ticks (depth cut
     from 256), 3 relinearisations, `MPCConfig(qp_condense=False)`, fp32:
-    every QP goes through K6's global variant.  The condensed QP runs the
+    every QP goes through K6's sparse variant.  The condensed QP runs the
     same ticks from the same states beside it: the two QPs share one
     optimum, so the tracking errors must agree within
     MAX_FULL_VS_CONDENSED_ERR."""
@@ -1591,11 +1700,11 @@ def phase_mpc_full(device, smi):
     if not abs(out["full_minus_condensed_err"]) <= MAX_FULL_VS_CONDENSED_ERR:
         fails.append("full and condensed QP track apart by "
                      f"{out['full_minus_condensed_err']:.4f} m")
-    if launches["admm_iterations_global"] \
+    if launches["admm_iterations_sparse"] \
             != int(tres.sqp_iters.max(0).values.sum()):
-        fails.append("K6 global launches != relinearisation passes run")
-    if launches["admm_iterations"] != launches["admm_iterations_global"]:
-        fails.append("a shared-memory K6 ran on the full QP")
+        fails.append("K6 sparse launches != relinearisation passes run")
+    if launches["admm_iterations"] != launches["admm_iterations_sparse"]:
+        fails.append("a K6 launch on the full QP was not the sparse one")
     if fails:
         raise RuntimeError("; ".join(fails))
     return out
@@ -1774,7 +1883,6 @@ def kernel_entries(r):
                    ms=big["ms"], plain_ms=big["plain_ms"],
                    bound_ms=big["bound_ms"], bound_by=big["bound_by"])))
     shared_rows = [w for w in admms if w["name"] == "admm_iterations"]
-    global_rows = [w for w in admms if w["name"] == "admm_iterations_global"]
     v = shared_rows[0]
     entries.append(dict(
         name="admm_iterations", route="cuda",
@@ -1798,29 +1906,46 @@ def kernel_entries(r):
                            fixed_count=w["fixed_count"],
                            loose_test=w["loose_test"])
                       for w in shared_rows[1:]]))
-    # K6's global variant on the full QP of a real tick: float32 at 256
-    # lanes, with its launches on the full-QP MPC run; float64 beside it
-    v, f64 = global_rows
-    entries.append(dict(
-        name="admm_iterations_global", route="cuda",
-        source="uneven_planner_tpu_torch/csrc/admm_qp.cu",
-        replaces="uneven_planner_tpu/solver/admm_qp.py:295",
-        launches=mpc_full["launches"]["admm_iterations_global"],
-        launches_track_full_ref=track_full["admm_global_launches"],
-        max_abs_err=v["max_abs_err"], fixed_count=v["fixed_count"],
-        tolerance=dict(rel=v["tolerance_rel"],
-                       rel_float64=f64["tolerance_rel"]),
-        split_equal=v["split_equal"], ms=v["ms"], plain_ms=v["plain_ms"],
-        bound_ms=v["bound_ms"], bound_by=v["bound_by"],
-        streamed_bytes_ms=v["streamed_bytes_ms"], library_ms=None,
-        shape=v["shape"], iters_mean=v["iters_mean"],
-        float64=dict(shape=f64["shape"], max_abs_err=f64["max_abs_err"],
-                     fixed_count=f64["fixed_count"],
-                     tolerance_rel=f64["tolerance_rel"],
-                     split_equal=f64["split_equal"], ms=f64["ms"],
-                     plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
-                     bound_by=f64["bound_by"],
-                     streamed_bytes_ms=f64["streamed_bytes_ms"])))
+    # K6's sparse and global instantiations on the full QP of a real tick:
+    # float32 at 256 lanes, float64 at 64 beside it.  The sparse one serves
+    # the full-QP MPC and its reference; the global one takes the QPs whose
+    # compressed lane does not fit, and its launches are those of its own
+    # path, `solve_qp` on dense QPs of the full QP's shape
+    for which in ("sparse", "global"):
+        name = f"admm_iterations_{which}"
+        v, f64 = [w for w in admms if w["name"] == name]
+        launches = (dict(launches=mpc_full["launches"][name],
+                         launches_track_full_ref=track_full["launches_card"][
+                             name],
+                         launches_track_full_ref_float64=track_full[
+                             "float64"]["launches_card"][name])
+                    if which == "sparse" else
+                    dict(launches=v["own_path"]["launches"],
+                         path=v["own_path"]["path"],
+                         launches_mpc_full=mpc_full["launches"][name]))
+        entries.append(dict(
+            name=name, route="cuda",
+            source="uneven_planner_tpu_torch/csrc/admm_qp.cu",
+            replaces="uneven_planner_tpu/solver/admm_qp.py:295",
+            **launches, max_abs_err=v["max_abs_err"],
+            fixed_count=v["fixed_count"],
+            tolerance=dict(rel=v["tolerance_rel"],
+                           rel_float64=f64["tolerance_rel"]),
+            split_equal=v["split_equal"], ms=v["ms"], plain_ms=v["plain_ms"],
+            bound_ms=v["bound_ms"], bound_by=v["bound_by"],
+            dense_bound_ms=v["dense_bound_ms"],
+            streamed_bytes_ms=v["streamed_bytes_ms"], library_ms=None,
+            shape=v["shape"], nonzeros_a=v["nonzeros_a"],
+            nonzeros_p=v["nonzeros_p"], iters_mean=v["iters_mean"],
+            float64=dict(shape=f64["shape"], max_abs_err=f64["max_abs_err"],
+                         fixed_count=f64["fixed_count"],
+                         tolerance_rel=f64["tolerance_rel"],
+                         split_equal=f64["split_equal"], ms=f64["ms"],
+                         plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
+                         bound_by=f64["bound_by"],
+                         dense_bound_ms=f64["dense_bound_ms"],
+                         streamed_bytes_ms=f64["streamed_bytes_ms"],
+                         iters_mean=f64["iters_mean"])))
     for e in entries[:4]:
         e["launches_pipeline"] = pipe["launches"][e["name"]]
     return entries

@@ -24,6 +24,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -34,11 +35,26 @@ def unfused(src: str) -> str:
                   src)
 
 
+class _Present:
+    """A loaded library seen by a `declare` function: a C function that its
+    source lacks (an older version) takes the declaration harmlessly."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        try:
+            return getattr(self._lib, name)
+        except AttributeError:
+            return types.SimpleNamespace()
+
+
 def build_variants(sources: dict, out_dir: str, declare=None,
                    logs=None) -> dict:
     """Compile each named CUDA source with the package's flags, all at once,
-    and load it with `declare` (K6's argument types by default); the
-    compilers' output goes into `logs` by name where one is given."""
+    and load it with `declare` (K6's argument types by default; functions a
+    source lacks stay undeclared); the compilers' output goes into `logs`
+    by name where one is given."""
     from uneven_planner_tpu_torch.kernels import admm, build
     declare = declare or admm._declare
     os.makedirs(out_dir, exist_ok=True)
@@ -58,7 +74,7 @@ def build_variants(sources: dict, out_dir: str, declare=None,
         if logs is not None:
             logs[name] = log
         lib = ctypes.CDLL(so)
-        declare(lib)
+        declare(_Present(lib))
         libs[name] = lib
     return libs
 

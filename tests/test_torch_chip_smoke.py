@@ -116,3 +116,32 @@ def test_gather_rows_byte_table_on_cpu_clips(n, length):
     want = table[idx.long().clamp(0, n - 1)]
     assert torch.equal(got, want)
     assert torch.equal(gather.gather_rows(table, idx.long()), want)
+
+
+@pytest.mark.parametrize("dtype,rows,along", [
+    (torch.float64, True, True), (torch.int64, True, True),
+    (torch.float32, True, True), (torch.int32, True, True),
+    (torch.bool, True, False), (torch.uint8, True, False),
+    (torch.float16, False, False), (torch.int16, False, False)])
+def test_gather_element_widths(dtype, rows, along):
+    """The element widths each gather kernel is compiled for, checked
+    before a launch: K3 1, 4 and 8 bytes, K4 4 and 8 (float64 and int64
+    tracking runs on the card); the others raise TypeError."""
+    t = torch.zeros(4, dtype=dtype)
+    for sizes, ok in ((gather.ROWS_ELEMENT_BYTES, rows),
+                      (gather.ALONG_ELEMENT_BYTES, along)):
+        if ok:
+            gather.check_element_size(t, sizes, "k")
+        else:
+            with pytest.raises(TypeError, match="bytes"):
+                gather.check_element_size(t, sizes, "k")
+
+
+@pytest.mark.parametrize("elem,row_bytes,aligned,want", [
+    (8, 96, True, 16),    # float64 piece rows [N, 12]
+    (8, 48, True, 16),    # [N, 6]
+    (8, 24, True, 8),     # [N, 3]: 8-byte words
+    (8, 96, False, 8),    # a misaligned view
+    (4, 48, True, 16), (4, 4, True, 4), (1, 3, True, 1)])
+def test_gather_rows_word_width(elem, row_bytes, aligned, want):
+    assert gather.row_word_bytes(elem, row_bytes, aligned) == want

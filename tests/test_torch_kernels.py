@@ -167,7 +167,7 @@ def _indices(rng, n, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.uint8,
-                                   torch.bool])
+                                   torch.bool, torch.float64, torch.int64])
 @pytest.mark.parametrize("width", [None, 1, 3, 4, 6, 8, 12, 128])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_gather_rows_kernel_matches_twin_on_card(card, dtype, width,
@@ -242,7 +242,8 @@ def test_gather_rows_table_over_the_shared_limit_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.float64,
+                                   torch.int64])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_gather_along_kernel_matches_twin_on_card(card, dtype, axis,
@@ -262,14 +263,57 @@ def test_gather_along_kernel_matches_twin_on_card(card, dtype, axis,
 
 
 @pytest.mark.cuda
-def test_gather_kernels_reject_what_they_do_not_take_on_card(card):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64])
+def test_gather_kernels_take_8_byte_elements_at_tracking_shapes_on_card(
+        card, dtype):
+    """K3 and K4 on 8-byte elements equal their twins bit for bit at the
+    shapes the reference sampling gives them in float64 (the piece rows
+    [B x pieces, 12] and [B x pieces, 6] by int64, the cumulative piece
+    times [B, pieces] by [B, 30]), with a row of odd width (8-byte words)
+    and indices at and beyond both edges; on the card, not through the
+    twin."""
     from uneven_planner_tpu_torch.kernels import gather
-    x64 = torch.zeros((8, 8), dtype=torch.float64, device=card)
+    rng = np.random.default_rng(8)
+    for B, pieces, T in ((256, 16, 30), (64, 20, 1024)):
+        for width in (12, 6, 3):
+            table = torch.tensor(rng.normal(size=(B * pieces, width)) * 1e3) \
+                .to(dtype).to(card)
+            idx = torch.tensor(_indices(rng, B * pieces, B * T)).to(card)
+            before = gather.launches["gather_rows"]
+            got = gather.gather_rows(table, idx)
+            torch.cuda.synchronize()
+            assert gather.launches["gather_rows"] == before + 1
+            assert got.dtype == dtype and got.is_cuda
+            assert torch.equal(got, gather.gather_rows_twin(table, idx))
+        x = torch.tensor(np.cumsum(rng.random((B, pieces)), 1) * 1e3) \
+            .to(dtype).to(card)
+        idx = torch.tensor(_indices(rng, pieces, (B, T))).to(card)
+        before = gather.launches["gather_along"]
+        got = gather.gather_along(x, idx)
+        torch.cuda.synchronize()
+        assert gather.launches["gather_along"] == before + 1
+        assert torch.equal(got, gather.gather_along_twin(x, idx))
+    # the bits of a NaN and of -0.0 survive the copy
+    special = torch.tensor([[float("nan"), -0.0, float("inf")]],
+                           dtype=torch.float64, device=card)
+    ix = torch.tensor([[2, 1, 0]], device=card)
+    got = gather.gather_along(special, ix).view(torch.int64)
+    assert torch.equal(got, special.flip(1).view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_gather_kernels_reject_what_they_do_not_take_on_card(card):
+    """Element widths neither kernel is compiled for (2 bytes; 1 byte for
+    K4), a wrong layout and mixed devices raise."""
+    from uneven_planner_tpu_torch.kernels import gather
+    x16 = torch.zeros((8, 8), dtype=torch.float16, device=card)
     idx = torch.zeros((8, 2), dtype=torch.int64, device=card)
     with pytest.raises(TypeError):
-        gather.gather_along(x64, idx)
+        gather.gather_along(x16, idx)
     with pytest.raises(TypeError):
-        gather.gather_rows(x64, idx[:, 0].contiguous())
+        gather.gather_along(x16.bool(), idx)
+    with pytest.raises(TypeError):
+        gather.gather_rows(x16, idx[:, 0].contiguous())
     x = torch.zeros((8, 8), device=card)
     with pytest.raises(ValueError):
         gather.gather_along(x.t(), idx)                 # not contiguous
@@ -470,6 +514,112 @@ def test_admm_variant_is_chosen_by_shape_and_dtype(n, m, dtype):
         admm.variant(n, m, torch.float16)
 
 
+def _tick_setup(condense, lanes, dtype, device, seed=0, warm_ticks=2):
+    """The scaled first QP of a tracking tick, as `mpc_step` builds it:
+    `lanes` controllers on the figure-eight, `warm_ticks` ticks after their
+    start states (at rest some entries of A are zero), the condensed
+    (n = 60, m = 118) or the full QP (n = 150, m = 208); returns
+    `setup_qp`'s result and the config."""
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.minco.traj import expand_traj
+    from uneven_planner_tpu_torch.mpc import tracker, traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    from uneven_planner_tpu_torch.solver import admm_qp
+    cfg = MPCConfig(qp_condense=condense)
+    f8 = expand_traj(traj_msg.figure_eight(0.5, dtype=dtype, device=device),
+                     lanes)
+    rng = np.random.default_rng(seed)
+    s0 = np.zeros((lanes, 3))
+    s0[:, :2] = rng.uniform(-0.05, 0.05, (lanes, 2))
+    s0[:, 2] = np.pi / 4 + rng.uniform(-0.1, 0.1, lanes)
+    s = rollout.roll_init(torch.tensor(s0, dtype=dtype, device=device), cfg)
+    for _ in range(warm_ticks):
+        s, _, _ = rollout.tick(f8, s, cfg, 0.01, 3, None)
+    refs, _ = tracker.get_ref_points(f8, s.t, cfg)
+    refs = tracker.smooth_yaw(refs, s.state[:, 2])
+    xbar = tracker.predict_motion(s.state, s.output, cfg)
+    assemble = tracker.assemble_qp_condensed if condense \
+        else tracker.assemble_qp
+    qp = assemble(xbar, s.output, refs, torch.zeros_like(refs[:, :2]), cfg)
+    return admm_qp.setup_qp(*[a.contiguous() for a in qp], rho=cfg.qp_rho,
+                            sigma=cfg.qp_sigma), cfg
+
+
+@pytest.mark.parametrize("qp,dtype,want", [
+    ("full", torch.float32, "sparse"), ("full", torch.float64, "sparse"),
+    ("condensed", torch.float32, "fixed"),
+    ("condensed", torch.float64, "sparse"),
+    ("dense", torch.float32, "global"), ("dense", torch.float64, "global")])
+def test_admm_variant_is_chosen_with_the_nonzero_counts(qp, dtype, want):
+    """With the lanes' nonzero counts, `variant` serves the full tracking
+    QP (A: 531 of 31,200 entries, P: 266 of 22,500, counted on real ticks
+    after Ruiz scaling) and the float64 condensed QP (A: 176, P dense) with
+    the sparse instantiation, a dense QP of the full QP's shape with the
+    global one, and the float32 condensed QP, as before, with the one
+    compiled for its shape."""
+    from uneven_planner_tpu_torch.kernels import admm
+    if qp == "dense":
+        d, _ = _admm_case(2, 150, 208, seed=4, device="cpu", dtype=dtype)
+        counts = (208 * 150, 150 * 150)
+    else:
+        setup, _ = _tick_setup(qp == "condensed", 2, dtype, "cpu")
+        d = setup.data
+        counts = (531, 266) if qp == "full" else (176, 3600)
+    assert admm.nonzero_counts(d) == counts
+    n, m = d.P.shape[1], d.A.shape[1]
+    assert admm.variant(n, m, dtype, admm.nonzero_counts(d)) == want
+    # without the counts the shape alone decides, as before
+    assert admm.variant(n, m, dtype) in ("fixed", "global")
+
+
+def test_admm_sparse_shared_bytes_match_hand_counts():
+    """The sparse variant's shared memory, reckoned by hand from its
+    layout (`admm_sparse_kernel` in csrc/admm_qp.cu): the full tracking QP
+    fits twice in an SM's 228 KB in float32 and once in float64; a dense
+    lane of that shape does not fit."""
+    from uneven_planner_tpu_torch.kernels import admm
+    f32, f64 = torch.float32, torch.float64
+    # float32, n = 150, m = 208, 531 + 266 entries: Minv at a row stride of
+    # 156 (39 16-byte words, odd), 32 words of scratch, rhs at 156, five
+    # n-vectors, seven m-vectors, 2 x 531 + 266 values, 511 int starts and
+    # 150 column cursors, 1,328 16-bit indices
+    assert admm.sparse_shared_bytes(150, 208, 531, 266, f32) == (
+        4 * (32 + 150 * 156 + 156 + 5 * 150 + 7 * 208 + 2 * 531 + 266)
+        + 4 * (511 + 150) + 2 * 1328) == 113788
+    assert 2 * (113788 + 1024) <= 228 * 1024
+    # float64: a stride of 150 (75 words)
+    assert admm.sparse_shared_bytes(150, 208, 531, 266, f64) == (
+        8 * (32 + 150 * 150 + 150 + 5 * 150 + 7 * 208 + 2 * 531 + 266)
+        + 4 * (511 + 150) + 2 * 1328) == 215028
+    # the condensed QP in float64: n = 60 at a stride of 62 (31 words)
+    assert admm.sparse_shared_bytes(60, 118, 176, 3600, f64) == (
+        8 * (32 + 60 * 62 + 62 + 5 * 60 + 7 * 118 + 2 * 176 + 3600)
+        + 4 * (118 + 120 + 3 + 60) + 2 * (2 * 176 + 3600))
+    for dtype in (f32, f64):
+        assert admm.sparse_shared_bytes(150, 208, 208 * 150, 150 * 150,
+                                        dtype) == 0
+    assert admm.sparse_shared_bytes(257, 10, 10, 257, f32) == 0  # n > 256
+
+
+def test_admm_nonzero_counts_keep_nan_and_skip_signed_zeros():
+    """The counts the sparse variant is sized for are the largest over the
+    lanes; an entry is skipped only when it is exactly zero (+0 or -0),
+    and a NaN entry counts."""
+    from uneven_planner_tpu_torch.kernels import admm
+    d, _ = _sparse_admm_case(3, 30, 40, seed=1, device="cpu",
+                             dtype=torch.float64)
+    per_lane = lambda t: (t != 0).sum((1, 2)).tolist()
+    assert admm.nonzero_counts(d) == (max(per_lane(d.A)), max(per_lane(d.P)))
+    top = int(torch.tensor(per_lane(d.A)).argmax())
+    i, j = (d.A[top] == 0).nonzero()[0].tolist()
+    A = d.A.clone()
+    A[top, i, j] = float("nan")
+    assert admm.nonzero_counts(d._replace(A=A))[0] == max(per_lane(d.A)) + 1
+    A[top, i, j] = -0.0
+    assert admm.nonzero_counts(d._replace(A=A)) == admm.nonzero_counts(d)
+    assert admm.nonzero_counts(d._replace(A=A[:0], P=d.P[:0])) == (0, 0)
+
+
 @pytest.mark.cuda
 def test_admm_kernel_rejects_what_it_does_not_take_on_card(card):
     """Mixed dtypes, a wrong layout and a CPU tensor raise; the full
@@ -497,6 +647,11 @@ def test_admm_kernel_rejects_what_it_does_not_take_on_card(card):
                 n, m, int(dtype == torch.float64), ctypes.byref(res)))
             assert (got, bool(res.value)) == admm.global_shared_bytes(
                 n, m, dtype)
+        for dtype in (torch.float32, torch.float64):
+            for nnz in ((531, 266), (176, n * n), (m * n, n * n)):
+                got = int(lib.admm_sparse_shared_bytes(
+                    n, m, *nnz, int(dtype == torch.float64)))
+                assert got == admm.sparse_shared_bytes(n, m, *nnz, dtype)
     assert admm.shared_bytes(60, 118) == 61992
     for dtype in (torch.float32, torch.float64):
         big, sb = _admm_case(1, 150, 268, seed=1, device=card, dtype=dtype)
@@ -558,6 +713,185 @@ def test_admm_global_variant_is_resumable_bit_for_bit_on_card(card, dtype):
     assert _rel(got.x, want.x) < 1e-3
 
 
+def _sparse_admm_case(B, n, m, seed, device, dtype, density=0.04):
+    """Random SPD box QPs with sparse P and A (P = L L' + n I with L
+    lower-banded of width 3, A with `density` of its entries) and their
+    factorization, unit scalings."""
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.solver import admm_qp
+    rng = np.random.default_rng(seed)
+    L = np.tril(np.triu(rng.normal(size=(B, n, n)), -3))
+    P = L @ L.transpose(0, 2, 1) + n * np.eye(n)
+    A = rng.normal(size=(B, m, n)) * (rng.random((B, m, n)) < density)
+    q = rng.normal(size=(B, n)) * 3
+    l = -np.abs(rng.normal(size=(B, m))) - 0.1
+    u = np.abs(rng.normal(size=(B, m))) + 0.1
+    to = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    P, q, A, l, u = map(to, (P, q, A, l, u))
+    rho = torch.full((B, m), 0.1, dtype=dtype, device=device)
+    M = P + 1e-6 * torch.eye(n, dtype=dtype, device=device) \
+        + (A.transpose(1, 2) * rho[:, None, :]) @ A
+    ones = lambda *s: torch.ones(s, dtype=dtype, device=device)
+    d = admm.ADMMData(P, q, A, l, u, rho,
+                      admm_qp._spd_inverse(M).contiguous(),
+                      ones(B, n) * 1.25, ones(B, m) * 0.8, ones(B) * 1.5)
+    z = torch.zeros((B, m), dtype=dtype, device=device)
+    return d, admm.initial_state(torch.zeros((B, n), dtype=dtype,
+                                             device=device), z, z.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,tol", [
+    ("full", torch.float32, 2.5e-4), ("full", torch.float64, 1e-10),
+    ("random", torch.float32, 5e-5), ("random", torch.float64, 1e-10),
+    ("tall", torch.float32, 5e-5), ("tall", torch.float64, 1e-10)])
+def test_admm_sparse_variant_matches_twin_at_a_fixed_count_on_card(
+        card, case, dtype, tol):
+    """The sparse variant against the twin over 400 iterations with the
+    termination test off: on the full QP of a real tick, which `variant`
+    gives it (float32 within chip_smoke.py's TOL_ADMM_REL_GLOBAL_F32, the
+    floor of float32 sums on that QP), and named on random sparse QPs
+    (n = 90, m = 140 at 4% density, which in float32 the run-time
+    shared-memory kernel would serve; and m = 300 at 10%, more rows than a
+    block has threads and more entries in a row or column than a thread
+    keeps in registers; float32 within TOL_ADMM_REL), float64 within the
+    rounding of two summation orders; every lane at the same count."""
+    from uneven_planner_tpu_torch.kernels import admm
+    if case == "full":
+        setup, cfg = _tick_setup(False, 8, dtype, card, seed=5)
+        d, s = setup.data, setup.state
+        n, m = d.P.shape[1], d.A.shape[1]
+        assert admm.variant(n, m, dtype, admm.nonzero_counts(d)) == "sparse"
+    elif case == "random":
+        d, s = _sparse_admm_case(6, 90, 140, seed=11, device=card,
+                                 dtype=dtype)
+    else:
+        d, s = _sparse_admm_case(4, 90, 300, seed=12, device=card,
+                                 dtype=dtype, density=0.1)
+        per_row = (d.A != 0).sum(-1)
+        assert int(per_row.max()) > 4 and int((d.A != 0).sum(1).max()) > 8
+    kw = dict(ADMM_KW, eps_abs=0.0, eps_rel=0.0, max_iter=1000)
+    before = dict(admm.launches)
+    got = admm.launch_variant("sparse", d, s, n_iters=400, **kw)
+    want = admm.admm_iterations_twin(d, s, n_iters=400, **kw)
+    torch.cuda.synchronize()
+    for key in ("admm_iterations", "admm_iterations_sparse"):
+        assert admm.launches[key] == before[key] + 1
+    assert admm.launches["admm_iterations_global"] \
+        == before["admm_iterations_global"]
+    assert torch.equal(got.it, want.it) and int(got.it.min()) == 400
+    assert _rel(got.x, want.x) < tol and _rel(got.y, want.y) < tol
+    assert _rel(got.z, want.z) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_admm_sparse_variant_is_resumable_bit_for_bit_on_card(card, dtype):
+    """On the full QP of a real tick, 25 + 375 iterations equal 400 bit for
+    bit in the sparse variant; n_iters = 0 and a finished lane pass through
+    unchanged; it stops within one iteration of the twin on a loose
+    test."""
+    from uneven_planner_tpu_torch.kernels import admm
+    setup, _ = _tick_setup(False, 8, dtype, card, seed=6)
+    d, s = setup.data, setup.state
+    kw = dict(ADMM_KW, eps_abs=1e-7, eps_rel=1e-7, max_iter=2000)
+    whole = admm.launch_variant("sparse", d, s, n_iters=400, **kw)
+    part = admm.launch_variant("sparse", d, s, n_iters=25, **kw)
+    assert int(part.it.max()) == 25
+    part = admm.launch_variant("sparse", d, part, n_iters=375, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, part):
+        assert torch.equal(a, b)
+    same = admm.launch_variant("sparse", d, whole, n_iters=0, **kw)
+    done = whole._replace(done=torch.ones_like(whole.done))
+    frozen = admm.launch_variant("sparse", d, done, n_iters=50, **kw)
+    for a, b, c in zip(whole, same, frozen[:-1] + (whole.done,)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    got = admm.launch_variant("sparse", d, s, n_iters=400, **ADMM_KW)
+    want = admm.admm_iterations_twin(d, s, n_iters=400, **ADMM_KW)
+    assert (got.it - want.it).abs().max() <= 1, (got.it, want.it)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_admm_sparse_variant_returns_nan_for_a_nan_inverse_on_card(card,
+                                                                   dtype):
+    """A lane whose inverse is NaN runs to its limit and returns NaN in the
+    sparse variant: the dense Minv product carries it into every entry of
+    x, every row of A with an entry carries it into z and y, and the
+    residuals are NaN (a row of A with no entry, which the random QPs have
+    and the tracking QPs do not, keeps a finite z and y: nothing multiplies
+    x there); the other lanes are untouched by it and match the twin."""
+    from uneven_planner_tpu_torch.kernels import admm
+    d, s = _sparse_admm_case(4, 40, 70, seed=2, device=card, dtype=dtype)
+    d.minv[1] = float("nan")
+    got = admm.launch_variant("sparse", d, s, n_iters=400, **ADMM_KW)
+    want = admm.admm_iterations_twin(d, s, n_iters=400, **ADMM_KW)
+    torch.cuda.synchronize()
+    assert int(got.it[1]) == ADMM_KW["max_iter"] and bool(got.done[1])
+    assert got.x[1].isnan().all()
+    rows = (d.A[1] != 0).any(-1)
+    assert rows.any() and not rows.all()
+    for t in (got.y, got.z):
+        assert t[1][rows].isnan().all() and torch.isfinite(t[1][~rows]).all()
+    assert got.r_prim[1].isnan() and got.r_dual[1].isnan()
+    ok = [0, 2, 3]
+    assert torch.isfinite(got.x[ok]).all()
+    assert (got.it[ok] - want.it[ok]).abs().max() <= 1
+    assert _rel(got.x[ok], want.x[ok]) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_admm_dense_lane_is_served_by_the_global_variant_on_card(card,
+                                                                 dtype):
+    """A dense QP of the full QP's shape does not fit compressed: it goes
+    to the global variant, and naming the sparse one for it raises."""
+    from uneven_planner_tpu_torch.kernels import admm
+    d, s = _admm_case(2, 150, 208, seed=9, device=card, dtype=dtype)
+    before = dict(admm.launches)
+    out = admm.admm_iterations(d, s, n_iters=5, **ADMM_KW)
+    torch.cuda.synchronize()
+    assert admm.launches["admm_iterations_global"] \
+        == before["admm_iterations_global"] + 1
+    assert admm.launches["admm_iterations_sparse"] \
+        == before["admm_iterations_sparse"]
+    assert int(out.it[0]) == 5
+    with pytest.raises(ValueError, match="does not fit"):
+        admm.launch_variant("sparse", d, s, n_iters=5, **ADMM_KW)
+
+
+@pytest.mark.cuda
+def test_float64_tracking_on_card_launches_the_gather_kernels(card):
+    """A float64 figure-eight rollout on the card (fault F2: the gathers of
+    the reference sampling refused 8-byte elements) launches K3 and K4 on
+    float64 tables and K6's sparse variant, and stays with the CPU's
+    float64 rollout."""
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.kernels import admm, gather
+    from uneven_planner_tpu_torch.mpc import traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    s0 = np.zeros((3, 3))
+    s0[:, 0] = [0.02, -0.03, 0.04]
+    s0[:, 2] = np.pi / 4
+    run = lambda dev: rollout.track_trajectory_batched(
+        traj_msg.figure_eight(0.5, dtype=torch.float64, device=dev), s0,
+        MPCConfig(), 8, device=dev)
+    before = dict(gather.launches), dict(admm.launches)
+    res = run(card)
+    torch.cuda.synchronize()
+    for name in ("gather_rows", "gather_along"):
+        assert gather.launches[name] > before[0][name]
+    passes = int(res.sqp_iters.max(0).values.sum())
+    assert admm.launches["admm_iterations_sparse"] \
+        - before[1]["admm_iterations_sparse"] == passes
+    assert res.states.dtype == torch.float64 and res.states.is_cuda
+    torch.set_num_threads(1)
+    cpu = run("cpu")
+    assert float((res.states.cpu() - cpu.states).abs().max()) < 1e-6
+    assert float((res.cmds.cpu() - cpu.cmds).abs().max()) < 1e-5
+
+
 @pytest.mark.cuda
 def test_solve_qp_on_card_goes_through_the_kernel(card):
     """`solve_qp` on CUDA tensors launches K6 (once with a fixed rho, once
@@ -584,11 +918,12 @@ def test_solve_qp_on_card_goes_through_the_kernel(card):
     n_launch = admm.launches["admm_iterations"] - before
     assert n_launch >= 1 and n_launch == -(-int(ada.iters.max()) // 25)
     assert (ada.x.double().cpu() - ref.x).abs().max() < 1e-3
-    # float64 on the card goes through the kernel too (the global variant)
+    # float64 on the card goes through the kernel too (the sparse variant:
+    # the lane fits in shared memory with its 600 + 400 entries)
     before = dict(admm.launches)
     d64 = admm_qp.solve_qp(*[a.double() for a in qp], adaptive_rho=False,
                            **dict(kw, eps_abs=1e-10, eps_rel=1e-10))
-    for key in ("admm_iterations", "admm_iterations_global"):
+    for key in ("admm_iterations", "admm_iterations_sparse"):
         assert admm.launches[key] == before[key] + 1
     assert (d64.x.cpu() - ref.x).abs().max() < 1e-7
 
@@ -598,9 +933,10 @@ def test_solve_qp_on_card_goes_through_the_kernel(card):
                                        (torch.float64, 1e-4)])
 def test_full_qp_mpc_step_on_card_goes_through_the_kernel(card, dtype, tol):
     """`mpc_step` with the full QP (n = 150, m = 208) on the card, float32
-    and float64: one K6 launch per relinearization pass, commands near the
-    CPU's float64 step (float32: the QP's 1e-6 test at the float32 floor;
-    float64: summation order moves a count by one)."""
+    and float64: one K6 launch per relinearization pass, each the sparse
+    variant, commands near the CPU's float64 step (float32: the QP's 1e-6
+    test at the float32 floor; float64: summation order moves a count by
+    one)."""
     from uneven_planner_tpu_torch.config import MPCConfig
     from uneven_planner_tpu_torch.kernels import admm
     from uneven_planner_tpu_torch.mpc import tracker, traj_msg
@@ -608,8 +944,8 @@ def test_full_qp_mpc_step_on_card_goes_through_the_kernel(card, dtype, tol):
     from uneven_planner_tpu_torch.sim import rollout
     cfg = MPCConfig(qp_condense=False)
     B = 4
-    # the reference horizon, sampled on the CPU in float64 (the gather
-    # kernels of the sampling take 4-byte elements only)
+    # the reference horizon, sampled once on the CPU in float64, so that
+    # both steps get the same references
     f8 = expand_traj(traj_msg.figure_eight(0.5, device="cpu"), B)
     s0 = torch.zeros((B, 3), dtype=torch.float64)
     s0[:, 0] = torch.tensor([0.02, -0.03, 0.0, 0.04])
@@ -627,7 +963,7 @@ def test_full_qp_mpc_step_on_card_goes_through_the_kernel(card, dtype, tol):
     before = dict(admm.launches)
     got = step(card, dtype)
     torch.cuda.synchronize()
-    for key in ("admm_iterations", "admm_iterations_global"):
+    for key in ("admm_iterations", "admm_iterations_sparse"):
         assert admm.launches[key] - before[key] == int(got.sqp_iters.max())
     want = step("cpu", torch.float64)
     assert got.cmd.dtype == dtype and not got.qp_failed.any()

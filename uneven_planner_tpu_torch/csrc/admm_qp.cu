@@ -68,11 +68,13 @@
 // jnp.max and jnp.clip do: a lane with a non-finite factorisation runs to
 // its limit and returns NaN, which the caller detects.
 //
-// A third instantiation, further down, keeps P and A in device memory and
-// is templated on the scalar type: it serves the full tracking QP (n = 150,
-// m = 208) and float64, which the shared-memory design cannot hold.  The
-// wrapper (kernels/admm.py:variant) picks one of the three by shape and
-// dtype before the launch.
+// Two more instantiations, further down, are templated on the scalar type
+// and serve what the shared-memory design cannot hold: the full tracking QP
+// (n = 150, m = 208) and float64.  The sparse one keeps only the nonzeros
+// of P and A, compressed into shared memory at staging; the global one
+// reads them dense from device memory on every iteration.  The wrapper
+// (kernels/admm.py:variant) picks one of the four by shape, dtype and the
+// lanes' nonzero counts before the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -915,14 +917,13 @@ long long global_shared_bytes(int n, int m, int elt, bool* minv_resident) {
   return vec <= kMaxShared ? vec : 0;
 }
 
+// The kernels' arguments from the 28 pointers of the C interface (the
+// order of admm_iterations) and the scalars.
 template <typename T>
-int launch_global(const void* const* ptr, int batch, int n, int m,
-                  double sigma, double alpha, double one_minus_alpha,
-                  double eps_abs, double eps_rel, int max_iter, int n_iters,
-                  cudaStream_t stream) {
-  bool resident = false;
-  const long long bytes = global_shared_bytes(n, m, sizeof(T), &resident);
-  if (bytes == 0) return (int)cudaErrorInvalidValue;
+GlobalArgs<T> global_args(const void* const* ptr, int n, int m, double sigma,
+                          double alpha, double one_minus_alpha,
+                          double eps_abs, double eps_rel, int max_iter,
+                          int n_iters) {
   GlobalArgs<T> a;
   const T** in[] = {&a.P,    &a.q,    &a.A,    &a.l,    &a.u,
                     &a.rho,  &a.minv, &a.dinv, &a.einv, &a.cinv,
@@ -952,6 +953,20 @@ int launch_global(const void* const* ptr, int batch, int n, int m,
   a.eps_rel = (T)eps_rel;
   a.max_iter = max_iter;
   a.n_iters = n_iters;
+  a.minv_resident = false;
+  return a;
+}
+
+template <typename T>
+int launch_global(const void* const* ptr, int batch, int n, int m,
+                  double sigma, double alpha, double one_minus_alpha,
+                  double eps_abs, double eps_rel, int max_iter, int n_iters,
+                  cudaStream_t stream) {
+  bool resident = false;
+  const long long bytes = global_shared_bytes(n, m, sizeof(T), &resident);
+  if (bytes == 0) return (int)cudaErrorInvalidValue;
+  GlobalArgs<T> a = global_args<T>(ptr, n, m, sigma, alpha, one_minus_alpha,
+                                   eps_abs, eps_rel, max_iter, n_iters);
   a.minv_resident = resident;
   cudaError_t err = cudaFuncSetAttribute(
       admm_global_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -959,6 +974,585 @@ int launch_global(const void* const* ptr, int batch, int n, int m,
   if (err != cudaSuccess) return (int)err;
   admm_global_kernel<T><<<(unsigned)batch, kThreads, (size_t)bytes,
                           stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The sparse variant: any (n, m) whose compressed lane fits, float and
+// double.
+//
+// The full tracking QP is almost all zeros: A has 531 nonzeros of 31,200
+// (at most 4 a row, 6 a column: the identity of the input box rows, I, -I
+// and a few entries of A_j and B_j in the dynamics rows, two entries in the
+// rate rows) and P 266 of 22,500 (diagonal on the states, banded on the
+// inputs), on every lane alike.  This instantiation computes the update
+// sequence of the global one with products that skip the entries of P and A
+// that are exactly zero (+0 or -0; a NaN entry is kept).  Skipping one
+// changes a sum only where the vector it multiplies is not finite, and then
+// the lane is NaN already: x~ is a dense Minv product of the whole rhs, so
+// one non-finite entry anywhere reaches every entry of x~ and x+, from
+// there every row of A and of P with an entry, and through the
+// NaN-propagating maxima the residuals, so the lane returns NaN in x and
+// in its residuals as in the dense kernels.  Only z and y of a row of A
+// with no entry at all stay finite where a dense product makes them NaN
+// (0 x NaN); no row of the tracking QPs is empty.
+//
+// Staging, once per launch: each block reads its lane's dense P and A from
+// device memory twice (a warp per row, all of a row's loads in flight
+// together: the counts by ballot, then the entries) and keeps
+//   A by rows    (values, 16-bit column indices, row starts) for A x~, A x+,
+//   A by columns (values, 16-bit row indices, column starts) for A'y+, A'v+,
+//                filled at per-column cursors by shared atomics, then each
+//                column sorted into row order,
+//   P by rows    (values, 16-bit column indices, row starts) for P x+,
+// with Minv dense (the explicit inverse of the JAX package, no sparse
+// factorisation) and the vectors.  For the loop, each thread copies the
+// first few entries of its row of A, its column of A and its row of P
+// into registers (all of them in the tracking QPs), so the sparse products
+// wait on one shared read of the vector an entry, not three.  Nothing of the MPC's structure is
+// compiled in: any QP whose compressed lane fits in a block's shared memory
+// is served (`sparse_shared_bytes`; the launch is sized for the largest
+// nonzero counts over the lanes, which the wrapper counts on the device).
+// At n = 150, m = 208 with those counts a lane takes 113,788 bytes in float
+// (two blocks an SM) and 215,028 in double.
+//
+// What bounds it: operations, 2 (n^2 + 4 nnz(A) + nnz(P)) flops a lane and
+// iteration, and on this card the shared-memory reads of the dense Minv
+// product (n^2 words an iteration) and the latency of the chain of
+// products; the compressed P and A are read from device memory once per
+// launch, not once per iteration.  An iteration is three stages, each
+// closed by a barrier:
+//
+//   B1 a thread per row j of Minv, reading 16-byte words (the row stride
+//      puts eight consecutive rows on eight bank groups): x~_j, formed
+//      before the termination test of the previous iteration is read and
+//      written after it, then x+_j = alpha x~_j + (1 - alpha) x_j;
+//   B2 a thread per row i of A: z~_i and (A x+)_i from the row's entries,
+//      the z, y, v updates and the primal residual of row i;
+//   C  a thread per column j: A'y+ and A'v+ from column j's entries and
+//      (P x+)_j from row j of P, the dual residual of column j and the next
+//      rhs_j; then the warps' maxima, which the next iteration's test
+//      combines on eight lanes of every warp.
+//
+// Sums run in a fixed order (Minv: four running sums by column mod 4, then
+// (s0 + s1) + (s2 + s3); a sparse row or column: one running sum in index
+// order), so 25 + 375 iterations equal 400 bit for bit.
+// ---------------------------------------------------------------------------
+
+// Writes a lane's state (sparse variant): x, z, y from xs, zs, ys (device or shared
+// memory), the scalars by thread 0.
+template <typename T>
+__device__ __forceinline__ void store_state(const GlobalArgs<T>& a,
+                                            int lane, const T* xs,
+                                            const T* zs, const T* ys, int it,
+                                            T rp, T rd, T pn, T dn,
+                                            bool done) {
+  const int tid = threadIdx.x;
+  const long long on = (long long)lane * a.n, om = (long long)lane * a.m;
+  for (int j = tid; j < a.n; j += kThreads) a.x[on + j] = xs[j];
+  for (int i = tid; i < a.m; i += kThreads) {
+    a.z[om + i] = zs[i];
+    a.y[om + i] = ys[i];
+  }
+  if (tid == 0) {
+    a.it[lane] = it;
+    a.rp[lane] = rp;
+    a.rd[lane] = rd;
+    a.pn[lane] = pn;
+    a.dn[lane] = dn;
+    a.done[lane] = done ? 1 : 0;
+  }
+}
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using V = float4; };
+template <> struct Vec16<double> { using V = double2; };
+
+// Row stride of Minv in shared memory, in elements: n rounded up to a whole
+// odd number of 16-byte words, so rows start 16-byte aligned and eight
+// consecutive rows fall on eight different groups of four banks.
+__host__ __device__ inline int sparse_minv_stride(int n, int elt) {
+  const int per = 16 / elt;
+  int words = (n + per - 1) / per;
+  if (words % 2 == 0) ++words;
+  return words * per;
+}
+
+// Bytes of dynamic shared memory of the sparse variant for nnz_a entries of
+// A and nnz_p of P: the reduction scratch, Minv at its row stride, rhs at
+// that stride, five more n-vectors (x, x~, q, cinv dinv, cinv dinv q),
+// seven m-vectors (z, y, v, l, u, rho, einv) and the values of A by rows,
+// A by columns and P by rows, then the int starts of A's m rows, A's n
+// columns and P's n rows and the n column cursors of A's fill, then the
+// 16-bit indices of the three.
+long long sparse_shared_bytes(int n, int m, long long nnz_a,
+                              long long nnz_p, int elt) {
+  const long long ld = sparse_minv_stride(n, elt);
+  return (long long)elt * (4LL * kWarps + n * ld + ld + 5LL * n + 7LL * m +
+                           2 * nnz_a + nnz_p) +
+         4LL * (m + 3LL * n + 3) + 2LL * (2 * nnz_a + nnz_p);
+}
+
+// Whether the sparse variant takes an (n, m) QP with these counts: a lane
+// fits in a block's shared memory, a thread per row of Minv, indices in 16
+// bits.
+bool sparse_fits(int n, int m, long long nnz_a, long long nnz_p, int elt) {
+  return n <= kThreads && m <= 65536 &&
+         sparse_shared_bytes(n, m, nnz_a, nnz_p, elt) <= kMaxShared;
+}
+
+// sum_c row[c] vec[c] over `words` 16-byte words, four running sums by
+// c mod 4, then (s0 + s1) + (s2 + s3).
+__device__ __forceinline__ float minv_dot(const float* row, const float* vec,
+                                          int words) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4* v4 = reinterpret_cast<const float4*>(vec);
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll 4
+  for (int c = 0; c < words; ++c) {
+    const float4 a = r4[c], b = v4[c];
+    s0 = fmaf(a.x, b.x, s0);
+    s1 = fmaf(a.y, b.y, s1);
+    s2 = fmaf(a.z, b.z, s2);
+    s3 = fmaf(a.w, b.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+__device__ __forceinline__ double minv_dot(const double* row,
+                                           const double* vec, int words) {
+  const double2* r2 = reinterpret_cast<const double2*>(row);
+  const double2* v2 = reinterpret_cast<const double2*>(vec);
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+  int c = 0;
+#pragma unroll 2
+  for (; c + 1 < words; c += 2) {
+    const double2 a0 = r2[c], a1 = r2[c + 1], b0 = v2[c], b1 = v2[c + 1];
+    s0 = fma(a0.x, b0.x, s0);
+    s1 = fma(a0.y, b0.y, s1);
+    s2 = fma(a1.x, b1.x, s2);
+    s3 = fma(a1.y, b1.y, s3);
+  }
+  if (c < words) {
+    const double2 a0 = r2[c], b0 = v2[c];
+    s0 = fma(a0.x, b0.x, s0);
+    s1 = fma(a0.y, b0.y, s1);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// counts [len] -> exclusive starts [len + 1], by one warp
+__device__ __forceinline__ void warp_exclusive_scan(int* a, int len) {
+  const int wl = threadIdx.x & 31;
+  int carry = 0;
+  for (int b = 0; b < len; b += 32) {
+    const int i = b + wl;
+    const int v = i < len ? a[i] : 0;
+    int inc = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, inc, off);
+      if (wl >= off) inc += t;
+    }
+    if (i < len) a[i] = carry + inc - v;
+    carry += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  if (wl == 0) a[len] = carry;
+}
+
+// 32-column chunks of a row of the sparse variant (n <= kThreads)
+constexpr int kChunks = kThreads / 32;
+// entries a thread keeps in registers for the loop: the first kCacheRow of
+// its row of A (B2) and of P (C), the first kCacheCol of its column of A
+// (C); further ones are read from shared memory
+constexpr int kCacheRow = 4;
+constexpr int kCacheCol = 8;
+
+// blocks an SM is to hold: two lanes in float (113 KB each on the full
+// QP), one in double
+template <typename T> struct SparseBlocks {
+  static constexpr int value = sizeof(T) == 4 ? 2 : 1;
+};
+
+// The entries [begin, end) of a compressed row or column as one thread
+// sees them: the first K in registers, the rest left in shared memory.
+template <typename T, int K>
+struct Entries {
+  T v[K];
+  int idx[K];
+  int cnt, rest, end;
+
+  __device__ __forceinline__ void load(const T* vals, const uint16_t* ids,
+                                       int begin, int end_) {
+    cnt = min(end_ - begin, K);
+    rest = begin + cnt;
+    end = end_;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = k < cnt ? vals[begin + k] : T(0);
+      idx[k] = k < cnt ? (int)ids[begin + k] : 0;
+    }
+  }
+
+  // s1 += sum v x1[idx], s2 += sum v x2[idx] over the entries in order
+  __device__ __forceinline__ void dot2(const T* vals, const uint16_t* ids,
+                                       const T* x1, const T* x2, T& s1,
+                                       T& s2) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < cnt) {
+        s1 = fma_t(v[k], x1[idx[k]], s1);
+        s2 = fma_t(v[k], x2[idx[k]], s2);
+      }
+    for (int e = rest; e < end; ++e) {
+      const int c = ids[e];
+      s1 = fma_t(vals[e], x1[c], s1);
+      s2 = fma_t(vals[e], x2[c], s2);
+    }
+  }
+
+  __device__ __forceinline__ T dot(const T* vals, const uint16_t* ids,
+                                   const T* x) const {
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < cnt) s = fma_t(v[k], x[idx[k]], s);
+    for (int e = rest; e < end; ++e) s = fma_t(vals[e], x[ids[e]], s);
+    return s;
+  }
+};
+
+// A row of `n` columns into the warp's registers, chunk k on lane wl being
+// column 32 k + wl (zero past n), every load issued before any is used.
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ row, int n,
+                                         T (&v)[kChunks]) {
+  const int wl = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = 32 * k + wl;
+    v[k] = c < n ? __ldg(row + c) : T(0);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, SparseBlocks<T>::value)
+    admm_sparse_kernel(GlobalArgs<T> a, int cap_a, int cap_p) {
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  T* sm = reinterpret_cast<T*>(sm_raw);
+  const int lane = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, wl = tid & 31;
+  const unsigned below = (1u << wl) - 1u;  // lanes before this one
+  const int n = a.n, m = a.m;
+  const int ld = sparse_minv_stride(n, sizeof(T));
+  const int words = ld / (16 / (int)sizeof(T));
+  const long long on = (long long)lane * n, om = (long long)lane * m;
+
+  int it = a.it_in[lane];
+  bool done = a.done_in[lane] != 0;
+  T r_prim = a.rp_in[lane], r_dual = a.rd_in[lane];
+  T prim_norm = a.pn_in[lane], dual_norm = a.dn_in[lane];
+
+  if (done || a.n_iters <= 0) {  // a frozen lane passes through unchanged
+    store_state(a, lane, a.x_in + on, a.z_in + om, a.y_in + om, it, r_prim,
+                r_dual, prim_norm, dual_norm, done);
+    return;
+  }
+
+  T* s_red = sm;                     // [kWarps][4] (rp, rd, pn, dn)
+  T* s_minv = s_red + 4 * kWarps;    // [n][ld], zero past column n
+  T* s_rhs = s_minv + n * ld;        // [ld], zero past n
+  T* s_x = s_rhs + ld;
+  T* s_xt = s_x + n;
+  T* s_q = s_xt + n;
+  T* s_cd = s_q + n;   // cinv * dinv
+  T* s_qu = s_cd + n;  // cinv * dinv * q
+  T* s_z = s_qu + n;
+  T* s_y = s_z + m;
+  T* s_v = s_y + m;    // rho z - y
+  T* s_l = s_v + m;
+  T* s_u = s_l + m;
+  T* s_rho = s_u + m;
+  T* s_einv = s_rho + m;
+  T* a_rv = s_einv + m;              // A by rows: values [cap_a]
+  T* a_cv = a_rv + cap_a;            // A by columns: values [cap_a]
+  T* p_v = a_cv + cap_a;             // P by rows: values [cap_p]
+  int* a_rp = reinterpret_cast<int*>(p_v + cap_p);  // [m + 1] row starts
+  int* a_cp = a_rp + m + 1;          // [n + 1] column starts
+  int* p_rp = a_cp + n + 1;          // [n + 1] row starts
+  int* a_cur = p_rp + n + 1;         // [n] column cursors of the fill
+  uint16_t* a_ci = reinterpret_cast<uint16_t*>(a_cur + n);  // [cap_a]
+  uint16_t* a_ri = a_ci + cap_a;     // [cap_a]
+  uint16_t* p_ci = a_ri + cap_a;     // [cap_p]
+
+  const T* __restrict__ gP = a.P + on * n;
+  const T* __restrict__ gA = a.A + om * n;
+  const T* __restrict__ gminv = a.minv + on * n;
+  auto row_of = [&](int r) {  // rows of A, then rows of P
+    return r < m ? gA + (long long)r * n : gP + (long long)(r - m) * n;
+  };
+
+  // ---- stage Minv (a warp per row), the vectors, and zero the counts
+  for (int r = warp; r < n; r += kWarps) {
+    T v[kChunks];
+    load_row(gminv + (long long)r * n, n, v);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k)
+      if (32 * k + wl < n) s_minv[r * ld + 32 * k + wl] = v[k];
+  }
+  for (int t = tid; t < n * (ld - n); t += kThreads) {
+    const int r = t / (ld - n);
+    s_minv[r * ld + n + (t - r * (ld - n))] = T(0);
+  }
+  for (int c = n + tid; c < ld; c += kThreads) s_rhs[c] = T(0);
+  const T cinv = a.cinv[lane];
+  for (int j = tid; j < n; j += kThreads) {
+    const T q = a.q[on + j];
+    const T cd = cinv * a.dinv[on + j];
+    s_q[j] = q;
+    s_cd[j] = cd;
+    s_qu[j] = cd * q;
+    s_x[j] = a.x_in[on + j];
+  }
+  for (int i = tid; i < m; i += kThreads) {
+    const T z = a.z_in[om + i], y = a.y_in[om + i];
+    const T rho = a.rho[om + i];
+    s_l[i] = a.l[om + i];
+    s_u[i] = a.u[om + i];
+    s_rho[i] = rho;
+    s_einv[i] = a.einv[om + i];
+    s_z[i] = z;
+    s_y[i] = y;
+    s_v[i] = rho * z - y;
+  }
+  for (int t = tid; t < m + 2 * n + 3; t += kThreads) a_rp[t] = 0;
+  __syncthreads();
+
+  // ---- count: a warp per row of A (its count by ballot, its columns'
+  // counts by shared atomics, integers, so in any order) and of P
+  for (int r = warp; r < m + n; r += kWarps) {
+    T v[kChunks];
+    load_row(row_of(r), n, v);
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const bool nz = 32 * k + wl < n && v[k] != T(0);
+      cnt += __popc(__ballot_sync(0xffffffffu, nz));
+      if (nz && r < m) atomicAdd(a_cp + 32 * k + wl, 1);
+    }
+    if (wl == 0) {
+      if (r < m)
+        a_rp[r] = cnt;
+      else
+        p_rp[r - m] = cnt;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) warp_exclusive_scan(a_rp, m);
+  if (warp == 1) warp_exclusive_scan(a_cp, n);
+  if (warp == 2) warp_exclusive_scan(p_rp, n);
+  __syncthreads();
+  // The launch is sized for the largest counts over the lanes, taken by the
+  // wrapper on the same data, so no lane exceeds them; a lane that did
+  // would overrun its arrays, and returns NaN instead.
+  if (a_rp[m] > cap_a || p_rp[n] > cap_p) {
+    for (int j = tid; j < n; j += kThreads) s_x[j] = T(NAN);
+    for (int i = tid; i < m; i += kThreads) s_z[i] = s_y[i] = T(NAN);
+    __syncthreads();
+    store_state(a, lane, s_x, s_z, s_y, it, T(NAN), T(NAN), T(NAN), T(NAN),
+                done);
+    return;
+  }
+  for (int j = tid; j < n; j += kThreads) a_cur[j] = a_cp[j];
+  __syncthreads();
+
+  // ---- fill A and P by rows (a warp per row, entries in column order)
+  // and A by columns (each entry at its column's cursor, in any order)
+  for (int r = warp; r < m + n; r += kWarps) {
+    const bool is_a = r < m;
+    T* vals = is_a ? a_rv : p_v;
+    uint16_t* cols = is_a ? a_ci : p_ci;
+    int pos = is_a ? a_rp[r] : p_rp[r - m];
+    T v[kChunks];
+    load_row(row_of(r), n, v);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = 32 * k + wl;
+      const bool nz = c < n && v[k] != T(0);
+      const unsigned bal = __ballot_sync(0xffffffffu, nz);
+      if (nz) {
+        const int e = pos + __popc(bal & below);
+        vals[e] = v[k];
+        cols[e] = (uint16_t)c;
+        if (is_a) {
+          const int f = atomicAdd(a_cur + c, 1);
+          a_cv[f] = v[k];
+          a_ri[f] = (uint16_t)r;
+        }
+      }
+      pos += __popc(bal);
+    }
+  }
+  __syncthreads();
+  // ---- each column of A into row order (insertion sort: a few entries)
+  for (int j = tid; j < n; j += kThreads) {
+    for (int e = a_cp[j] + 1; e < a_cp[j + 1]; ++e) {
+      const T v = a_cv[e];
+      const uint16_t r = a_ri[e];
+      int f = e;
+      for (; f > a_cp[j] && a_ri[f - 1] > r; --f) {
+        a_cv[f] = a_cv[f - 1];
+        a_ri[f] = a_ri[f - 1];
+      }
+      a_cv[f] = v;
+      a_ri[f] = r;
+    }
+  }
+  __syncthreads();
+
+  // this thread's row of A (B2), column of A and row of P (C), as far as
+  // they fit in its registers
+  Entries<T, kCacheRow> row_a, row_p;
+  Entries<T, kCacheCol> col_a;
+  if (tid < m) row_a.load(a_rv, a_ci, a_rp[tid], a_rp[tid + 1]);
+  if (tid < n) {
+    col_a.load(a_cv, a_ri, a_cp[tid], a_cp[tid + 1]);
+    row_p.load(p_v, p_ci, p_rp[tid], p_rp[tid + 1]);
+  }
+
+  const T sigma = a.sigma, alpha = a.alpha, oma = a.one_minus_alpha;
+
+  // stage C: for column j = tid (n <= kThreads), A'y+ and A'v+ over its
+  // entries and P x+ over row j of P, the dual residual of column j and
+  // the next rhs
+  auto stage_c = [&](T& rd, T& dn) {
+    if (tid < n) {
+      const int j = tid;
+      T ay = T(0), av = T(0);
+      col_a.dot2(a_cv, a_ri, s_y, s_v, ay, av);
+      const T px = row_p.dot(p_v, p_ci, s_x);
+      const T pxu = s_cd[j] * px, atyu = s_cd[j] * ay;
+      const T qu = s_qu[j];
+      rd = nan_max(rd, abs_t((pxu + qu) + atyu));
+      dn = nan_max(dn, nan_max(nan_max(abs_t(pxu), abs_t(atyu)), abs_t(qu)));
+      s_rhs[j] = (sigma * s_x[j] - s_q[j]) + av;
+    }
+  };
+
+  // the first rhs, from the state as it came in (the same arithmetic as in
+  // the loop, so a resumed run continues bit for bit)
+  {
+    T rd = T(0), dn = T(0);
+    stage_c(rd, dn);
+  }
+  __syncthreads();
+
+  for (int k = 0;; ++k) {
+    // ---- B1's product, x~_j = (Minv rhs)_j for j = tid
+    const T xt = tid < n ? minv_dot(s_minv + tid * ld, s_rhs, words) : T(0);
+    // ---- the termination test of iteration k: the block maxima of the
+    // warps' residuals and norms, lanes w < kWarps reading warp w's
+    if (k > 0) {
+      T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0);
+      if (wl < kWarps) {
+        v0 = s_red[4 * wl];
+        v1 = s_red[4 * wl + 1];
+        v2 = s_red[4 * wl + 2];
+        v3 = s_red[4 * wl + 3];
+      }
+#pragma unroll
+      for (int off = kWarps / 2; off > 0; off >>= 1) {
+        v0 = nan_max(v0, __shfl_xor_sync(0xffffffffu, v0, off));
+        v1 = nan_max(v1, __shfl_xor_sync(0xffffffffu, v1, off));
+        v2 = nan_max(v2, __shfl_xor_sync(0xffffffffu, v2, off));
+        v3 = nan_max(v3, __shfl_xor_sync(0xffffffffu, v3, off));
+      }
+      r_prim = __shfl_sync(0xffffffffu, v0, 0);
+      r_dual = __shfl_sync(0xffffffffu, v1, 0);
+      prim_norm = __shfl_sync(0xffffffffu, v2, 0);
+      dual_norm = __shfl_sync(0xffffffffu, v3, 0);
+      const bool converged =
+          (r_prim < a.eps_abs + a.eps_rel * prim_norm) &&
+          (r_dual < a.eps_abs + a.eps_rel * dual_norm);
+      it += 1;
+      done = converged || (it >= a.max_iter);
+    }
+    if (done || k >= a.n_iters) break;
+
+    // ---- B1's updates: x~ and x+ in place
+    if (tid < n) {
+      s_xt[tid] = xt;
+      s_x[tid] = alpha * xt + oma * s_x[tid];
+    }
+    __syncthreads();
+
+    // ---- B2: rows of A (z~, A x+, the z, y, v updates, the primal
+    // residual); row tid from registers, rows past kThreads from shared
+    // memory
+    T rp = T(0), rd = T(0), pn = T(0), dn = T(0);
+    for (int i = tid; i < m; i += kThreads) {
+      T zt = T(0), ax = T(0);
+      if (i == tid) {
+        row_a.dot2(a_rv, a_ci, s_xt, s_x, zt, ax);
+      } else {
+        for (int e = a_rp[i]; e < a_rp[i + 1]; ++e) {
+          const T v = a_rv[e];
+          const int c = a_ci[e];
+          zt = fma_t(v, s_xt[c], zt);
+          ax = fma_t(v, s_x[c], ax);
+        }
+      }
+      ax = s_einv[i] * ax;
+      const T rho = s_rho[i], y = s_y[i];
+      const T z_relax = alpha * zt + oma * s_z[i];
+      const T z_new = nan_min(nan_max(z_relax + y / rho, s_l[i]), s_u[i]);
+      const T y_new = y + rho * (z_relax - z_new);
+      const T zu = s_einv[i] * z_new;
+      rp = nan_max(rp, abs_t(ax - zu));
+      pn = nan_max(pn, nan_max(abs_t(ax), abs_t(zu)));
+      s_z[i] = z_new;
+      s_y[i] = y_new;
+      s_v[i] = rho * z_new - y_new;
+    }
+    __syncthreads();
+
+    // ---- C and the warps' maxima of the residuals and norms
+    stage_c(rd, dn);
+    rp = warp_nan_max(rp);
+    rd = warp_nan_max(rd);
+    pn = warp_nan_max(pn);
+    dn = warp_nan_max(dn);
+    if (wl == 0) {
+      s_red[4 * warp] = rp;
+      s_red[4 * warp + 1] = rd;
+      s_red[4 * warp + 2] = pn;
+      s_red[4 * warp + 3] = dn;
+    }
+    __syncthreads();
+    // s_red is written again only after the next B1's and B2's barriers,
+    // which every thread reaches after reading it
+  }
+
+  store_state(a, lane, s_x, s_z, s_y, it, r_prim, r_dual, prim_norm,
+              dual_norm, done);
+}
+
+template <typename T>
+int launch_sparse(const void* const* ptr, int batch, int n, int m,
+                  int nnz_a, int nnz_p, double sigma, double alpha,
+                  double one_minus_alpha, double eps_abs, double eps_rel,
+                  int max_iter, int n_iters, cudaStream_t stream) {
+  if (nnz_a < 0 || nnz_p < 0 || !sparse_fits(n, m, nnz_a, nnz_p, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  const long long bytes = sparse_shared_bytes(n, m, nnz_a, nnz_p, sizeof(T));
+  GlobalArgs<T> a = global_args<T>(ptr, n, m, sigma, alpha, one_minus_alpha,
+                                   eps_abs, eps_rel, max_iter, n_iters);
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_sparse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  admm_sparse_kernel<T><<<(unsigned)batch, kThreads, (size_t)bytes,
+                          stream>>>(a, nnz_a, nnz_p);
   return (int)cudaGetLastError();
 }
 
@@ -1073,6 +1667,48 @@ int admm_iterations_global(
                                      max_iter, n_iters, s)
              : launch_global<float>(ptr, batch, n, m, sigma, alpha,
                                     one_minus_alpha, eps_abs, eps_rel,
+                                    max_iter, n_iters, s);
+}
+
+// The sparse variant (float when dbl == 0, double otherwise): bytes of
+// dynamic shared memory a lane with nnz_a entries of A and nnz_p of P that
+// are not zero takes, or 0 when such a lane does not fit.
+long long admm_sparse_shared_bytes(int n, int m, int nnz_a, int nnz_p,
+                                   int dbl) {
+  const int elt = dbl ? (int)sizeof(double) : (int)sizeof(float);
+  return sparse_fits(n, m, nnz_a, nnz_p, elt)
+             ? sparse_shared_bytes(n, m, nnz_a, nnz_p, elt)
+             : 0;
+}
+
+// Enqueues the sparse variant on `stream`, one block per lane: the same
+// arguments as admm_iterations_global, and the largest counts over the
+// lanes of A's and P's entries that are not zero, for which the shared
+// memory is sized.  Returns the first CUDA error (0 = launched); counts
+// whose lane does not fit are refused with cudaErrorInvalidValue.
+int admm_iterations_sparse(
+    const void* P, const void* q, const void* A, const void* l,
+    const void* u, const void* rho, const void* minv, const void* dinv,
+    const void* einv, const void* cinv, const void* x_in, const void* z_in,
+    const void* y_in, const void* it_in, const void* rp_in,
+    const void* rd_in, const void* pn_in, const void* dn_in,
+    const void* done_in, void* x, void* z, void* y, void* it, void* rp,
+    void* rd, void* pn, void* dn, void* done, int batch, int n, int m,
+    int nnz_a, int nnz_p, int dbl, double sigma, double alpha,
+    double one_minus_alpha, double eps_abs, double eps_rel, int max_iter,
+    int n_iters, void* stream) {
+  if (batch <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  const void* const ptr[28] = {P,     q,    A,     l,     u,     rho,
+                               minv,  dinv, einv,  cinv,  x_in,  z_in,
+                               y_in,  it_in, rp_in, rd_in, pn_in, dn_in,
+                               done_in, x,  z,     y,     it,    rp,
+                               rd,    pn,   dn,    done};
+  cudaStream_t s = (cudaStream_t)stream;
+  return dbl ? launch_sparse<double>(ptr, batch, n, m, nnz_a, nnz_p, sigma,
+                                     alpha, one_minus_alpha, eps_abs,
+                                     eps_rel, max_iter, n_iters, s)
+             : launch_sparse<float>(ptr, batch, n, m, nnz_a, nnz_p, sigma,
+                                    alpha, one_minus_alpha, eps_abs, eps_rel,
                                     max_iter, n_iters, s);
 }
 

@@ -15,7 +15,10 @@
 //   take_along_axis(x, idx, axis) on a 2-D array: what every a[idx] of
 //   frontend/kino_init.py:plan becomes under a batch of scenarios.
 //
-// Both clip the index into [0, N-1], as jnp.take(mode="clip") does.
+// Both clip the index into [0, N-1], as jnp.take(mode="clip") does.  Both
+// copy bits, so only an element's width matters: K3 moves a row as words
+// of 1, 4, 8 or 16 bytes (an 8-byte table, float64 or int64, as 8- or
+// 16-byte words), K4 is compiled for 4- and 8-byte elements.
 //
 // What bounds them: bytes.  Neither does arithmetic beyond the address; the
 // least traffic is every index in once, every output element out once, and
@@ -169,11 +172,11 @@ int launch_bytes_smem(const void* table, const void* idx, void* out,
 
 // out[r, c] = x[r * s_row + c * s_col + clip(idx[r, c]) * s_gather]:
 // axis 1 of x [R, N] is (s_row, s_col, s_gather) = (N, 0, 1);
-// axis 0 of x [N, C] is (0, 1, C).
-template <typename IdxT>
-__global__ void gather_along_kernel(const uint32_t* __restrict__ x,
+// axis 0 of x [N, C] is (0, 1, C).  T is a 4- or 8-byte word.
+template <typename T, typename IdxT>
+__global__ void gather_along_kernel(const T* __restrict__ x,
                                     const IdxT* __restrict__ idx,
-                                    uint32_t* __restrict__ out,
+                                    T* __restrict__ out,
                                     long long total, int cols, long long n,
                                     long long s_row, long long s_col,
                                     long long s_gather) {
@@ -182,6 +185,18 @@ __global__ void gather_along_kernel(const uint32_t* __restrict__ x,
   const long long r = t / cols;
   const long long c = t - r * cols;
   out[t] = x[r * s_row + c * s_col + clip_index(idx[t], n) * s_gather];
+}
+
+template <typename T, typename IdxT>
+int launch_along(const void* x, const void* idx, void* out, long long total,
+                 int cols, long long n, long long s_row, long long s_col,
+                 long long s_gather, cudaStream_t stream) {
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  gather_along_kernel<T, IdxT><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const T*)x, (const IdxT*)idx, (T*)out, total, cols, n, s_row, s_col,
+      s_gather);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename IdxT>
@@ -204,7 +219,7 @@ extern "C" {
 // caller checks device, dtype, shape and contiguity.
 
 // K3.  table [n, row_bytes] bytes, idx [m] (int32, or int64 when idx64),
-// out [m, row_bytes].  word_bytes is the widest word (1, 4 or 16) that
+// out [m, row_bytes].  word_bytes is the widest word (1, 4, 8 or 16) that
 // divides row_bytes and to which the caller found table and out aligned.
 int gather_rows(const void* table, const void* idx, void* out, long long m,
                 long long n, int row_bytes, int word_bytes, int idx64,
@@ -216,6 +231,9 @@ int gather_rows(const void* table, const void* idx, void* out, long long m,
     case 16:
       return idx64 ? launch_rows<uint4, int64_t>(table, idx, out, m, n, wv, s)
                    : launch_rows<uint4, int32_t>(table, idx, out, m, n, wv, s);
+    case 8:
+      return idx64 ? launch_rows<uint2, int64_t>(table, idx, out, m, n, wv, s)
+                   : launch_rows<uint2, int32_t>(table, idx, out, m, n, wv, s);
     case 4:
       return idx64
                  ? launch_rows<uint32_t, int64_t>(table, idx, out, m, n, wv, s)
@@ -244,24 +262,31 @@ int gather_rows_bytes_smem(const void* table, const void* idx, void* out,
                : launch_bytes_smem<int32_t>(table, idx, out, m, n, head, s);
 }
 
-// K4.  x holds 4-byte elements; idx and out are contiguous [rows, cols].
+// K4.  x holds elem_bytes-byte elements (4 or 8); idx and out are
+// contiguous [rows, cols].
 int gather_along(const void* x, const void* idx, void* out, long long rows,
                  int cols, long long n, long long s_row, long long s_col,
-                 long long s_gather, int idx64, void* stream) {
+                 long long s_gather, int elem_bytes, int idx64,
+                 void* stream) {
   const long long total = rows * cols;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  if (idx64) {
-    gather_along_kernel<int64_t><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const uint32_t*)x, (const int64_t*)idx, (uint32_t*)out, total, cols,
-        n, s_row, s_col, s_gather);
-  } else {
-    gather_along_kernel<int32_t><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const uint32_t*)x, (const int32_t*)idx, (uint32_t*)out, total, cols,
-        n, s_row, s_col, s_gather);
+  switch (elem_bytes) {
+    case 8:
+      return idx64 ? launch_along<uint64_t, int64_t>(x, idx, out, total, cols,
+                                                     n, s_row, s_col,
+                                                     s_gather, s)
+                   : launch_along<uint64_t, int32_t>(x, idx, out, total, cols,
+                                                     n, s_row, s_col,
+                                                     s_gather, s);
+    case 4:
+      return idx64 ? launch_along<uint32_t, int64_t>(x, idx, out, total, cols,
+                                                     n, s_row, s_col,
+                                                     s_gather, s)
+                   : launch_along<uint32_t, int32_t>(x, idx, out, total, cols,
+                                                     n, s_row, s_col,
+                                                     s_gather, s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* gather_error_string(int code) {

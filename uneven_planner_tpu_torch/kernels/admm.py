@@ -13,22 +13,31 @@ as batched tensor operations with a `done` mask.  The wrapper runs the twin
 only for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel on PyTorch's current stream or raises, and never falls back.
 
-The kernel has three instantiations, and `variant(n, m, dtype)` picks one
-by shape and dtype before the launch:
+The kernel has four instantiations, and `variant(n, m, dtype, nnz)` picks
+one by shape, dtype and the lanes' nonzero counts before the launch:
 - "fixed": float32 at n = 60, m = 118 (the condensed tracking QP), compiled
   for its shape, P, A and the inverse in shared memory;
 - "runtime": the same design for the other float32 shapes whose lane fits
   in a block's shared memory (`shared_bytes(n, m) <= MAX_SHARED_BYTES`; the
   largest condensed shape, n = 116, m = 230, does);
-- "global": every other float32 shape, such as the full tracking QP
-  (n = 150, m = 208), and every float64 QP; P and A are read from device
-  memory, the inverse is in shared memory when it fits
-  (`global_shared_bytes`).
+- "sparse": every other float32 QP and every float64 QP whose lane fits in
+  a block's shared memory with P and A compressed to their entries that are
+  not exactly zero (`sparse_shared_bytes`), such as the full tracking QP
+  (n = 150, m = 208: A 531 nonzeros, P 266) and the condensed QP in
+  float64; the inverse stays dense in shared memory;
+- "global": the rest, such as a dense QP of the full QP's shape; P and A
+  are read dense from device memory on every iteration, the inverse is in
+  shared memory when it fits (`global_shared_bytes`).
+Where the shape and dtype alone do not decide (neither "fixed" nor
+"runtime"), `admm_iterations` counts the nonzeros of every lane on the
+device and reads the largest counts back (`nonzero_counts`): one host read
+per launch.
 No gradient: nothing differentiates through the QP.
 
 `launches` counts kernel launches: "admm_iterations" every launch of K6,
-whichever instantiation, and "admm_iterations_global" the launches of the
-global one among them; only the wrapper adds to it.
+whichever instantiation, and "admm_iterations_sparse" and
+"admm_iterations_global" the launches of those two among them; only the
+wrapper adds to it.
 """
 
 from __future__ import annotations
@@ -40,13 +49,16 @@ import torch
 
 from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 
-# "admm_iterations" counts every launch of K6, "admm_iterations_global"
-# the launches of the global-memory instantiation among them
-launches = {"admm_iterations": 0, "admm_iterations_global": 0}
+# "admm_iterations" counts every launch of K6, "admm_iterations_sparse"
+# and "admm_iterations_global" the launches of those instantiations among
+# them
+launches = {"admm_iterations": 0, "admm_iterations_sparse": 0,
+            "admm_iterations_global": 0}
 
 # bytes of shared memory one thread block can have on sm_90
 MAX_SHARED_BYTES = 232448
-_WARPS = 8
+_THREADS = 256
+_WARPS = _THREADS // 32
 # (n, m) of the condensed tracking QP, for which the kernel is compiled
 # with its shape fixed (kFixedN, kFixedM of csrc/admm_qp.cu)
 FIXED_SHAPE = (60, 118)
@@ -118,20 +130,59 @@ def global_shared_bytes(n: int, m: int, dtype) -> tuple:
     return (vec if vec <= MAX_SHARED_BYTES else 0), False
 
 
-def variant(n: int, m: int, dtype) -> str:
+def sparse_shared_bytes(n: int, m: int, nnz_a: int, nnz_p: int,
+                        dtype) -> int:
+    """Shared memory a lane of an (n, m) QP with nnz_a entries of A and
+    nnz_p of P that are not zero takes in the sparse variant, or 0 when
+    such a lane does not fit (`admm_sparse_shared_bytes` of
+    `csrc/admm_qp.cu`): the reduction scratch; Minv and rhs at a row stride
+    of n rounded up to an odd count of 16-byte words; five more n-vectors
+    and seven m-vectors; the values of A by rows, A by columns and P by
+    rows; their starts (m + 1, n + 1, n + 1 int32), A's n column cursors
+    and their 16-bit indices.
+    A lane fits when that is at most MAX_SHARED_BYTES, n is at most a
+    block's 256 threads and m at most 65,536."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    per = 16 // elt
+    words = -(-n // per)
+    ld = per * (words + 1 - words % 2)
+    nbytes = elt * (4 * _WARPS + n * ld + ld + 5 * n + 7 * m + 2 * nnz_a
+                    + nnz_p) + 4 * (m + 3 * n + 3) + 2 * (2 * nnz_a + nnz_p)
+    fits = n <= _THREADS and m <= 65536 and nbytes <= MAX_SHARED_BYTES
+    return nbytes if fits else 0
+
+
+def variant(n: int, m: int, dtype, nnz=None) -> str:
     """The instantiation of K6 that serves an (n, m) QP of `dtype` on the
-    card: "fixed", "runtime" or "global" (see the module's docstring).
-    Raises TypeError for a dtype other than float32 and float64."""
+    card: "fixed", "runtime", "sparse" or "global" (see the module's
+    docstring).  `nnz` is (nnz_a, nnz_p), the largest counts over the lanes
+    of A's and P's entries that are not zero; without it only the shape
+    and dtype decide, and a QP that neither shared-memory kernel takes is
+    "global".  Raises TypeError for a dtype other than float32 and
+    float64."""
     if dtype == torch.float32:
         if (n, m) == FIXED_SHAPE:
             return "fixed"
         if shared_bytes(n, m) <= MAX_SHARED_BYTES:
             return "runtime"
-        return "global"
-    if dtype == torch.float64:
-        return "global"
-    raise TypeError(f"admm_iterations: no kernel for {dtype}; float32 and "
-                    "float64 are served")
+    elif dtype != torch.float64:
+        raise TypeError(f"admm_iterations: no kernel for {dtype}; float32 "
+                        "and float64 are served")
+    if nnz is not None and sparse_shared_bytes(n, m, *nnz, dtype) > 0:
+        return "sparse"
+    return "global"
+
+
+def nonzero_counts(d: ADMMData) -> tuple:
+    """(nnz_a, nnz_p): the largest count over the lanes of A's and of P's
+    entries that are not exactly zero (a NaN counts), as the sparse variant
+    compresses them.  Counted on the device; one host read."""
+    if d.A.shape[0] == 0:
+        return 0, 0
+    counts = torch.stack([(d.A != 0).sum((1, 2)).amax(),
+                          (d.P != 0).sum((1, 2)).amax()])
+    nnz_a, nnz_p = counts.tolist()
+    return int(nnz_a), int(nnz_p)
 
 
 def _declare(lib):
@@ -148,6 +199,11 @@ def _declare(lib):
     lib.admm_global_shared_bytes.argtypes = [i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.admm_global_shared_bytes.restype = ctypes.c_longlong
+    lib.admm_iterations_sparse.argtypes = [p] * 28 + [i, i, i, i, i, i, d,
+                                                      d, d, d, d, i, i, p]
+    lib.admm_iterations_sparse.restype = i
+    lib.admm_sparse_shared_bytes.argtypes = [i, i, i, i, i]
+    lib.admm_sparse_shared_bytes.restype = ctypes.c_longlong
     lib.admm_error_string.argtypes = [i]
     lib.admm_error_string.restype = ctypes.c_char_p
 
@@ -237,17 +293,22 @@ def admm_iterations(d: ADMMData, s: ADMMState, *, sigma: float, alpha: float,
     if d.P.dim() != 3 or d.A.dim() != 3:
         raise ValueError("admm_iterations: P must be [B, n, n] and A "
                          "[B, m, n]")
-    return launch_variant(variant(d.P.shape[1], d.A.shape[1], d.P.dtype),
-                          d, s, **kw)
+    n, m, dtype = d.P.shape[1], d.A.shape[1], d.P.dtype
+    # the nonzeros are counted only where the shape does not decide
+    nnz = nonzero_counts(d) if variant(n, m, dtype) == "global" else None
+    return launch_variant(variant(n, m, dtype, nnz), d, s, nnz=nnz, **kw)
 
 
 def launch_variant(which: str, d: ADMMData, s: ADMMState, *, sigma: float,
                    alpha: float, eps_abs: float, eps_rel: float,
-                   max_iter: int, n_iters: int) -> ADMMState:
+                   max_iter: int, n_iters: int, nnz=None) -> ADMMState:
     """Launch the named instantiation of K6 on CUDA tensors
-    (`admm_iterations` names the one `variant` picks; the card tests name
-    the global one at shapes the others serve, to hold it to the twin
-    there).  Raises where that instantiation does not take the QP."""
+    (`admm_iterations` names the one `variant` picks; the card tests and
+    `chip_smoke.py` name the sparse and global ones at shapes another one
+    serves, to hold them to the twin and time them there).  "sparse" is
+    sized for `nnz` (`nonzero_counts(d)` when None; a caller that captures
+    the launch in a CUDA graph passes it, since counting reads back to the
+    host).  Raises where that instantiation does not take the QP."""
     dev = d.P.device
     if dev.type != "cuda":
         raise ValueError(f"admm_iterations: no kernel for device {dev}")
@@ -268,8 +329,16 @@ def launch_variant(which: str, d: ADMMData, s: ADMMState, *, sigma: float,
         _check(t, name, shape, dtype, dev)
     _check(s.it, "it", (B,), torch.int32, dev)
     _check(s.done, "done", (B,), torch.bool, dev)
+    if which == "sparse":
+        nnz = nonzero_counts(d) if nnz is None else tuple(nnz)
+        if sparse_shared_bytes(n, m, *nnz, dtype) == 0:
+            raise ValueError(
+                f"admm_iterations: an (n={n}, m={m}) {dtype} QP with "
+                f"{nnz[0]} nonzeros in A and {nnz[1]} in P does not fit in "
+                f"the {MAX_SHARED_BYTES} bytes of a block's shared memory "
+                "compressed")
     # the global variant takes every shape the others take
-    if which not in (variant(n, m, dtype), "global"):
+    elif which not in (variant(n, m, dtype), "global"):
         raise ValueError(f"admm_iterations: the {which!r} kernel does not "
                          f"take an (n={n}, m={m}) {dtype} QP")
     if which == "global" and global_shared_bytes(n, m, dtype)[0] == 0:
@@ -283,20 +352,20 @@ def launch_variant(which: str, d: ADMMData, s: ADMMState, *, sigma: float,
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (*d, *s, *out)]
+    dbl = int(dtype == torch.float64)
+    scalars = (float(sigma), float(alpha), float(1 - alpha), float(eps_abs),
+               float(eps_rel), int(max_iter), int(n_iters), stream)
     if which == "global":
-        err = lib.admm_iterations_global(
-            *ptrs, B, n, m, int(dtype == torch.float64), float(sigma),
-            float(alpha), float(1 - alpha), float(eps_abs), float(eps_rel),
-            int(max_iter), int(n_iters), stream)
+        err = lib.admm_iterations_global(*ptrs, B, n, m, dbl, *scalars)
+    elif which == "sparse":
+        err = lib.admm_iterations_sparse(*ptrs, B, n, m, *nnz, dbl,
+                                         *scalars)
     else:
-        err = lib.admm_iterations(
-            *ptrs, B, n, m, float(sigma), float(alpha), float(1 - alpha),
-            float(eps_abs), float(eps_rel), int(max_iter), int(n_iters),
-            stream)
+        err = lib.admm_iterations(*ptrs, B, n, m, *scalars)
     if err != 0:
         msg = lib.admm_error_string(err).decode()
         raise RuntimeError(f"admm_iterations launch failed: {msg} ({err})")
     launches["admm_iterations"] += 1
-    if which == "global":
-        launches["admm_iterations_global"] += 1
+    if which in ("sparse", "global"):
+        launches[f"admm_iterations_{which}"] += 1
     return out

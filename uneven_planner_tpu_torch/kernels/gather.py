@@ -9,11 +9,12 @@ Indices are clipped as `jnp.take(..., mode="clip")` clips them (PyTorch
 would wrap a negative index; the twins clamp first).  A wrapper runs its
 twin only for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel on PyTorch's current stream or raises, and never falls back.  The
-kernels take bool/uint8 and 4-byte tables (K3; a byte table of at most
-SMEM_TABLE_BYTES rows is read from shared memory by a kernel of its own) and
-4-byte elements (K4);
-float64 exists on the CPU path only.  Neither has a gradient: the search
-that uses them is not differentiated.
+kernels copy bits, so they care only for an element's width: K3 takes 1-,
+4- and 8-byte tables (a byte table of at most SMEM_TABLE_BYTES rows is read
+from shared memory by a kernel of its own), K4 4- and 8-byte elements, so
+float64 and int64 run on the card as float32 and int32 do.  Neither has a
+gradient: the search and the reference sampling that use them are not
+differentiated.
 
 `launches` counts kernel launches by name; only the wrappers add to it, one
 per launch.
@@ -33,6 +34,9 @@ _IDX_TYPES = (torch.int32, torch.int64)
 # the largest byte table K3 copies into shared memory (kSmemTable of
 # csrc/gather.cu); a larger one goes through the generic kernel
 SMEM_TABLE_BYTES = 48 * 1024
+# element widths, in bytes, each kernel is compiled for
+ROWS_ELEMENT_BYTES = (1, 4, 8)
+ALONG_ELEMENT_BYTES = (4, 8)
 
 
 def reset_launches():
@@ -46,7 +50,7 @@ def _declare(lib):
     lib.gather_rows.restype = i
     lib.gather_rows_bytes_smem.argtypes = [p, p, p, ll, i, ll, i, p]
     lib.gather_rows_bytes_smem.restype = i
-    lib.gather_along.argtypes = [p, p, p, ll, i, ll, ll, ll, ll, i, p]
+    lib.gather_along.argtypes = [p, p, p, ll, i, ll, ll, ll, ll, i, i, p]
     lib.gather_along.restype = i
     lib.gather_error_string.argtypes = [i]
     lib.gather_error_string.restype = ctypes.c_char_p
@@ -68,9 +72,24 @@ def _check_index(idx, like, name):
         raise ValueError(f"{name}: idx on {idx.device}, data on {like.device}")
 
 
+def check_element_size(t: torch.Tensor, sizes, name):
+    """Raise TypeError unless the kernel `name` is compiled for the width
+    of t's elements (`sizes`, in bytes)."""
+    if t.element_size() not in sizes:
+        raise TypeError(f"{name}: the kernel takes elements of "
+                        f"{'/'.join(map(str, sizes))} bytes, got {t.dtype}")
+
+
 # ---------------------------------------------------------------------------
 # K3 gather_rows
 # ---------------------------------------------------------------------------
+
+def row_word_bytes(elem: int, row_bytes: int, aligned16: bool) -> int:
+    """The word K3 moves a table row in: 16 bytes where the row's length
+    is a multiple of 16 and table and output are 16-byte aligned, else
+    the element's own width."""
+    return 16 if row_bytes % 16 == 0 and aligned16 else elem
+
 
 def gather_rows_twin(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K3."""
@@ -109,10 +128,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_rows_twin(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows: no kernel for device {table.device}")
-    elem = table.element_size()
-    if elem not in (1, 4):
-        raise TypeError("gather_rows: the kernel takes 1-byte and 4-byte "
-                        f"elements, got {table.dtype}")
+    check_element_size(table, ROWS_ELEMENT_BYTES, "gather_rows")
     if not table.is_contiguous() or not idx.is_contiguous():
         raise ValueError("gather_rows: table and idx must be contiguous")
     M, N = idx.shape[0], table.shape[0]
@@ -128,11 +144,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
             _vector_head(idx, out), idx64, stream)
     else:
+        elem = table.element_size()
         row_bytes = elem * (table.shape[1] if table.dim() == 2 else 1)
-        word = elem
-        if row_bytes % 16 == 0 and table.data_ptr() % 16 == 0 \
-                and out.data_ptr() % 16 == 0:
-            word = 16
+        word = row_word_bytes(elem, row_bytes, table.data_ptr() % 16 == 0
+                              and out.data_ptr() % 16 == 0)
         err = lib.gather_rows(table.data_ptr(), idx.data_ptr(),
                               out.data_ptr(), M, N, row_bytes, word, idx64,
                               stream)
@@ -170,9 +185,7 @@ def gather_along(x: torch.Tensor, idx: torch.Tensor,
         return gather_along_twin(x, idx, axis)
     if x.device.type != "cuda":
         raise ValueError(f"gather_along: no kernel for device {x.device}")
-    if x.element_size() != 4:
-        raise TypeError("gather_along: the kernel takes 4-byte elements, "
-                        f"got {x.dtype}")
+    check_element_size(x, ALONG_ELEMENT_BYTES, "gather_along")
     if not x.is_contiguous() or not idx.is_contiguous():
         raise ValueError("gather_along: x and idx must be contiguous")
     rows, cols = idx.shape
@@ -186,7 +199,7 @@ def gather_along(x: torch.Tensor, idx: torch.Tensor,
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.gather_along(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                           rows, cols, N, *strides,
+                           rows, cols, N, *strides, x.element_size(),
                            int(idx.dtype == torch.int64), stream)
     _raise_on(lib, err, "gather_along")
     launches["gather_along"] += 1

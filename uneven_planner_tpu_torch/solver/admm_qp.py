@@ -229,10 +229,11 @@ def solve_qp(P, q, A, l, u, *, rho: float = 0.1, sigma: float = 1e-6,
     same.  On CUDA tensors the loop runs in the kernel K6, one launch per
     call (one per `adaptive_rho_interval` iterations with `adaptive_rho`).
     A CUDA call takes float32 or float64 at any shape: the kernel's
-    instantiation is chosen by `kernels.admm.variant(n, m, dtype)`, the
-    shared-memory ones for float32 QPs that fit (the condensed tracking QP)
-    and the global-memory one for the rest (the full tracking QP, n = 150,
-    m = 208, and every float64 QP)."""
+    instantiation is chosen by `kernels.admm.variant`, the shared-memory
+    ones for float32 QPs that fit (the condensed tracking QP), the sparse
+    one for the QPs whose nonzeros fit in shared memory (the full tracking
+    QP, n = 150, m = 208, and the float64 condensed one) and the
+    global-memory one for the rest."""
     B = q.shape[0]
     data, state, D, E, is_eq = setup_qp(P, q, A, l, u, rho=rho, sigma=sigma,
                                         x0=x0, y0=y0, ruiz=ruiz)
