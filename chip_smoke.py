@@ -8,15 +8,20 @@ Phases, each of which must pass (exit code 1 otherwise):
   1. device   CUDA present, full-fp32 matmul settings, card name and power
               limit from nvidia-smi;
   2. build    the terrain-lookup, gather, elementwise and ADMM kernels,
-              compiled with nvcc from uneven_planner_tpu_torch/csrc, all
-              compilers at once;
+              compiled with nvcc from uneven_planner_tpu_torch/csrc, and
+              the parent commit's K2 and K4 (chip_studies/k2_before.cu,
+              k4_before.cu, for the same-call comparison), all compilers
+              at once;
   3. kernels  each kernel against its plain PyTorch twin, timed beside the
               twin, its bound and (where one exists) the PyTorch library
               call: the terrain lookups on the full hill grid (200 x 200 x
               64) at the headline's lookup count (4096 lanes x 90 samples)
               and at the planning path's and the pipeline's shapes and
               modes, the gathers at the TPU probes' shapes, the planning
-              path's, the pipeline's and the tracking path's, tanh_affine
+              path's, the pipeline's and the tracking path's (K4 also on
+              several arrays at one index, on the walk back through the
+              search's arena, and on the inputs of one real hill search),
+              K2 and K4 beside the parent's kernels, tanh_affine
               at the TPU probe's shape and at a large one, the ADMM loop on
               the QPs of a real tracking tick (256 lanes, warm-started) and
               on random box QPs, with a split run held bit for bit, and its
@@ -39,8 +44,10 @@ Phases, each of which must pass (exit code 1 otherwise):
               search -> on-device init guess -> flat solve) on the full hill
               map with the default front-end sizing, 256 scenarios: one
               warm-up batch, one fresh batch for the search alone, one fresh
-              timed batch whose kernel launches are counted; path checks,
-              post-solve metrics, and a profile of one search;
+              timed batch whose kernel launches are counted (K4's three
+              entries summed); path checks, post-solve metrics, and a
+              profile of one search (device operations and K4 launches per
+              round, device busy share);
   9. track-ref 4 lanes of figure-eight tracking, 40 ticks, on the card
               (fp32, ADMM kernel) against the CPU (fp32, plain twin);
  10. track-full-ref  4 lanes x 40 ticks with the full QP
@@ -95,6 +102,8 @@ TOL = {"tv": (1e-5, 1e-5), "jac": (1e-4, 1e-4)}   # (atol, rtol), fp32
 # The gathers move values unchanged: they must equal their twins exactly.
 TOL_GATHER = 0.0
 PLAN_BATCH = 256
+# K4's entries: the one-array read, several arrays at one index, the walk
+K4_FAMILY = ("gather_along", "gather_along_many", "walk_parents")
 # K5: tanhf against torch.tanh in units of the last place, and the affine
 # result absolutely (it cancels near tanh(x) = -1/2).
 TOL_TANH_ULP = 2
@@ -233,11 +242,43 @@ def phase_device():
     return dev, smi
 
 
+# K2 and K4 as they were before their redesign (the parent commit's
+# sources, copied under chip_studies/), built beside the package's kernels
+# and timed in the same call as the redesigned ones; on no path
+BEFORE_SOURCES = {"k2_before": "chip_studies/k2_before.cu",
+                  "k4_before": "chip_studies/k4_before.cu"}
+_before = {}
+
+
+def before_library(name):
+    """The loaded library of BEFORE_SOURCES[name], with the C interface
+    its source had: K2's terrain_tv_pair without index width or layout,
+    K4's gather_along on one array."""
+    import ctypes
+    from uneven_planner_tpu_torch.kernels import build
+    if name not in _before:
+        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+
+        def declare(lib):
+            if name == "k2_before":
+                lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + [i] * 3 \
+                    + [f] * 11 + [i, p]
+                lib.terrain_tv_pair.restype = i
+            else:
+                lib.gather_along.argtypes = [p, p, p, ll, i, ll, ll, ll, ll,
+                                             i, i, p]
+                lib.gather_along.restype = i
+        _before[name] = build.CudaLibrary(
+            name, declare, os.path.join(HERE, BEFORE_SOURCES[name]))
+    return _before[name]
+
+
 def phase_build():
     from uneven_planner_tpu_torch.kernels import (admm, build, elementwise,
                                                   gather, terrain_lookup)
     libs = [terrain_lookup.LIBRARY, gather.LIBRARY, elementwise.LIBRARY,
-            admm.LIBRARY]
+            admm.LIBRARY] + [before_library(n) for n in BEFORE_SOURCES]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     for lib in libs:
@@ -248,8 +289,9 @@ def phase_build():
         for ln in lib.build_log.splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log("#   " + ln.strip())
-    log(f"# build: {dt:.1f} s for {len(libs)} libraries, compiled side by "
-        "side")
+    log(f"# build: {dt:.1f} s for {len(libs)} libraries (the last "
+        f"{len(BEFORE_SOURCES)} the parent's K2 and K4, for comparison), "
+        "compiled side by side")
     return dt
 
 
@@ -311,21 +353,44 @@ def terrain_cases():
     return cases
 
 
+def _k2_before(lib, table, geom, px, py, yaw, want_jac):
+    """The parent's K2 on its own table order (cells x, y, w)."""
+    import torch
+    M = px.numel()
+    tv = torch.empty((7, M), device=px.device)
+    jac = torch.empty((7, 3, M), device=px.device) if want_jac else None
+    err = lib.terrain_tv_pair(
+        px.data_ptr(), py.data_ptr(), yaw.data_ptr(), table.data_ptr(),
+        tv.data_ptr(), jac.data_ptr() if want_jac else None, M, *geom,
+        int(want_jac), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's K2 failed to launch ({err})")
+    return tv, jac
+
+
 def phase_kernels(grid):
     """K1 and K2 against their twins on the same CUDA tensors, at every
-    shape and mode of `terrain_cases`; times."""
+    shape and mode of `terrain_cases`; times, and the parent's K2 timed
+    beside the redesigned one."""
     from uneven_planner_tpu_torch.kernels import terrain_lookup as kernels
     from uneven_planner_tpu_torch.terrain import grid as tgrid
     import torch
     geom = tgrid.kernel_geometry(grid)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k2_before = before_library("k2_before").load()
+    nx, ny, nyaw = grid.voxel_num
+    pair_xyw = grid.data_pair.reshape(ny, nyaw, nx, 8).permute(2, 0, 1, 3) \
+        .contiguous().reshape(-1, 8)
     variants = []
     for path, M, name, exact, want_jac in terrain_cases():
         px, py, yaw = smoke_poses(grid, M, seed=1)
+        parent = None
         if name == "terrain_tv_pair":
             kern = lambda: kernels.terrain_tv_pair(
                 grid.data_pair, geom, px, py, yaw, want_jac)
             twin = lambda: tgrid.pair_tv_jac(grid, px, py, yaw, want_jac)
+            parent = lambda: _k2_before(k2_before, pair_xyw, geom, px, py,
+                                        yaw, want_jac)
             rows = 4
         else:
             kern = lambda: kernels.terrain_tv_packed16(
@@ -339,27 +404,35 @@ def phase_kernels(grid):
                                                                      True)
         equal = torch.equal(got[0], want[0]) and (
             not want_jac or torch.equal(got[1], want[1]))
+        parent_equal = None
+        if parent is not None:
+            old = parent()
+            parent_equal = torch.equal(old[0], want[0]) and (
+                not want_jac or torch.equal(old[1], want[1]))
+            del old
         del got, want
         ms = device_ms(kern)
         plain_ms = device_ms(twin)
+        ms_parent = device_ms(parent) if parent is not None else None
         nbytes = M * (12 + 32 * rows + 28 + (84 if want_jac else 0))
         bound_s = max(nbytes / PEAK_BYTES, M * OPS[name] / PEAK_F32)
         v = dict(name=name, path=path, exact=exact, want_jac=want_jac, M=M,
                  layout=(kernels.packed16_layout(M, sms)
                          if name == "terrain_tv_packed16"
-                         else "thread per sample"),
+                         else kernels.pair_layout(M, sms)),
                  equal=equal, max_abs_err_tv=e_tv[0], max_abs_err_jac=e_j[0],
                  n_out_of_tol=e_tv[1] + e_j[1], finite=e_tv[2] and e_j[2],
-                 ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+                 ms=ms, plain_ms=plain_ms, ms_parent=ms_parent,
+                 parent_equal=parent_equal, bound_ms=bound_s * 1e3,
                  bound_by=("bytes" if nbytes / PEAK_BYTES
                            >= M * OPS[name] / PEAK_F32 else "operations"),
                  bytes=nbytes)
         log("# kernel " + json.dumps(v))
         variants.append(v)
-    # K1 is held bit for bit (its redesign keeps every operation of every
-    # sample), K2 to the tolerances
+    # K1 and K2 are held bit for bit (their redesigns keep every operation
+    # of every sample)
     bad = [v for v in variants if v["n_out_of_tol"] or not v["finite"]
-           or (v["name"] == "terrain_tv_packed16" and not v["equal"])]
+           or not v["equal"]]
     if bad:
         raise RuntimeError(f"kernel disagrees with its twin: {bad}")
     return variants
@@ -544,17 +617,122 @@ def _edge_indices(n, shape, seed, dtype, device):
 
 def _exact_err(got, want):
     import torch
+    if isinstance(got, (list, tuple)):
+        return max(_exact_err(g, w) for g, w in zip(got, want))
     if got.dtype == torch.bool:
         got, want = got.to(torch.uint8), want.to(torch.uint8)
     return float((got.double() - want.double()).abs().max())
 
 
+def _all_equal(got, want):
+    import torch
+    if isinstance(got, (list, tuple)):
+        return len(got) == len(want) and all(
+            _all_equal(g, w) for g, w in zip(got, want))
+    return bool(torch.equal(got, want))
+
+
+def _k4_before(lib, x, idx, axis=1):
+    """The parent's K4 on one array."""
+    import torch
+    rows, cols = idx.shape
+    out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
+    strides = (x.shape[1], 0, 1) if axis == 1 else (0, 1, x.shape[1])
+    err = lib.gather_along(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                           rows, cols, x.shape[axis], *strides,
+                           x.element_size(), int(idx.dtype == torch.int64),
+                           torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's K4 failed to launch ({err})")
+    return out
+
+
+def host_ms(fn, reps=15):
+    """Median wall time of one fn() call ended by a synchronize: what the
+    host pays to launch it as well as the device's time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+# the search round whose dedup reads `phase_gather_kernels` takes from a real
+# hill search (rounds count from 0; the planning path's searches run 12)
+REAL_CELLS_ROUND = 6
+
+
+def capture_search(device, round_no=REAL_CELLS_ROUND):
+    """One search of the planning path at full width (hill map, default
+    front-end sizing, 256 scenarios drawn as `scen_batch`), recording the
+    inputs K4 is given: the two dedup tables and `cells` of round
+    `round_no`, and the arena and start of the walk back."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch import headline
+    from uneven_planner_tpu_torch.frontend import kino_init
+    cfg, grid = headline.scene_setup(device=device)
+    starts, goals = scen_batch(PLAN_BATCH, np.random.default_rng(1))
+    seen, calls = {}, [0]
+    many, walk = kino_init.gather_along_many, kino_init.walk_parents
+
+    def record_many(xs, idx, axis=1):
+        if len(xs) == 2:              # round_best and best_g at `cells`
+            if calls[0] == round_no:
+                seen["cells"] = ([x.clone() for x in xs], idx.clone())
+            calls[0] += 1
+        return many(xs, idx, axis)
+
+    def record_walk(parent, start, steps):
+        seen["walk"] = (parent.clone(), start.clone(), steps)
+        return walk(parent, start, steps)
+
+    kino_init.gather_along_many, kino_init.walk_parents = record_many, \
+        record_walk
+    try:
+        res = kino_init.plan(grid, cfg.frontend, torch.as_tensor(
+            starts, device=device), torch.as_tensor(goals, device=device))
+    finally:
+        kino_init.gather_along_many, kino_init.walk_parents = many, walk
+    if "cells" not in seen or "walk" not in seen:
+        raise RuntimeError(f"the search ran {calls[0]} rounds, fewer than "
+                           f"{round_no + 1}")
+    seen["rounds"] = int(res.rounds.max())
+    return seen
+
+
+def _forest(B, F, rounds, seed, device):
+    """A parent arena [B, 1 + F * rounds] as the search leaves it when every
+    scenario runs all its rounds: node 0 is the root (-1), a node of round r
+    has a parent among round r - 1's F nodes (round 0's: node 0); and a
+    start in the last round, so that the walk runs the whole depth."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    A = 1 + F * rounds
+    lane = torch.randint(0, F, (B, A), generator=g, dtype=torch.int32)
+    rnd = (torch.arange(A, dtype=torch.int32) - 1).div(
+        F, rounding_mode="floor")
+    parent = torch.where(rnd > 0, 1 + (rnd - 1) * F + lane, 0)
+    parent[:, 0] = -1
+    start = 1 + (rounds - 1) * F + torch.randint(0, F, (B,), generator=g,
+                                                 dtype=torch.int32)
+    return parent.to(device), start.to(device)
+
+
 def phase_gather_kernels(device):
-    """K3 and K4 against their twins (must be equal bit for bit) at the TPU
-    probes' shapes, the planning path's, the pipeline's and the tracking
-    path's (MPC alone and pipeline), timed beside the twin and the
-    PyTorch library call on the same inputs (the library calls do not clip,
-    so they get the indices clipped beforehand).  `ms`, `plain_ms` and
+    """K3 and K4 (`gather_along`, `gather_along_many`, `walk_parents`)
+    against their twins (must be equal bit for bit) at the TPU probes'
+    shapes, the planning path's, the pipeline's and the tracking path's
+    (MPC alone and pipeline), and K4 on the inputs of one real search,
+    timed beside the twin, the parent's K4 (`ms_parent`) and the PyTorch
+    library call on the same inputs (the library calls do not clip, so
+    they get the indices clipped beforehand).  `ms`, `plain_ms` and
     `library_ms` are `device_ms` readings, calls back to back, as for K1 and
     K2; `ms` is the one held against the bound.  Where the table is too
     large to stay in the 50 MB L2 between two rounds of the search,
@@ -563,6 +741,7 @@ def phase_gather_kernels(device):
     table row read at most once (a table smaller than the output is read
     once, not once per lookup)."""
     import torch
+    from uneven_planner_tpu_torch.config import FrontendConfig
     from uneven_planner_tpu_torch.kernels import gather
     gen = torch.Generator(device="cpu").manual_seed(5)
     rand = lambda shape: torch.randn(shape, generator=gen).to(device)
@@ -570,15 +749,20 @@ def phase_gather_kernels(device):
     m_occ = PLAN_BATCH * (10240 * 3 + 1024 * 64)
     variants = []
 
-    def run(name, shape, kern, twin, lib, nbytes, cold):
+    def run(name, shape, kern, twin, lib, nbytes, cold, parent=None,
+            **extra):
         got, want = kern(), twin()
         torch.cuda.synchronize()
-        v = dict(name=name, shape=shape, equal=bool(torch.equal(got, want)),
+        v = dict(name=name, shape=shape, equal=_all_equal(got, want),
                  max_abs_err=_exact_err(got, want), ms=device_ms(kern),
-                 plain_ms=device_ms(twin), library_ms=device_ms(lib),
+                 plain_ms=device_ms(twin),
+                 library_ms=device_ms(lib) if lib is not None else None,
                  bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
                  bytes=nbytes,
-                 ms_cold=device_ms_cold(kern) if cold else None)
+                 ms_cold=device_ms_cold(kern) if cold else None, **extra)
+        if parent is not None:
+            v["ms_parent"] = device_ms(parent)
+            v["ms_cold_parent"] = device_ms_cold(parent) if cold else None
         log("# kernel " + json.dumps(v))
         variants.append(v)
         del got, want
@@ -649,6 +833,7 @@ def phase_gather_kernels(device):
             ("pipeline non_hol_error", PIPE_LANES, 1024, (10, 20), f32,
              "f32")]
         for n_p in pieces]
+    k4_before = before_library("k4_before").load()
     for label, xs, ishape, axis, idt, xdt in [
             ("e5_dyngather lane: [4096, 128] axis 1", (4096, 128),
              (4096, 128), 1, torch.int32, f32),
@@ -668,14 +853,125 @@ def phase_gather_kernels(device):
         N = xs[axis]
         idx = _edge_indices(N, ishape, 13, idt, device)
         clipped = idx.long().clamp(0, N - 1)
+        wide = x.numel() * x.element_size() > 25e6
+        streams = idx.numel() * (idx.element_size() + x.element_size())
         run("gather_along", label,
             lambda: gather.gather_along(x, idx, axis),
             lambda: gather.gather_along_twin(x, idx, axis),
             lambda: torch.gather(x, axis, clipped),
-            idx.numel() * (idx.element_size() + x.element_size())
-            + min(idx.numel(), x.numel()) * x.element_size(),
-            cold=x.numel() * x.element_size() > 25e6)
+            streams + min(idx.numel(), x.numel()) * x.element_size(),
+            cold=wide, parent=lambda: _k4_before(k4_before, x, idx, axis),
+            # where the table is beyond the L2, every scattered read costs
+            # a 32-byte sector
+            sector_floor_ms=(streams + idx.numel() * 32) / PEAK_BYTES * 1e3
+            if wide else None)
         del x, idx, clipped
+
+    # K4 on several arrays read at one index: the search's pool by `sel`
+    # (int64) and by `keep` (int64), float32 fields and the int32 parent
+    # mixed, and its two dedup tables at `cells` (int32), on the planning
+    # path's 256 scenarios and the pipeline's 64.  The library column is
+    # one torch.gather per array, the parent column one launch per array.
+    i32 = torch.int32
+    pool_types = [f32] * 7 + [i32]
+    for path, B in (("path", PLAN_BATCH), ("pipeline", PIPE_LANES)):
+        for label, dts, xs, ishape, idt in [
+                (f"{path} pool[sel]: 8 x [{B}, 8192] by [{B}, 1024] int64",
+                 pool_types, (B, 8192), (B, 1024), torch.int64),
+                (f"{path} new_pool[keep]: 8 x [{B}, 18432] by [{B}, 8192] "
+                 "int64", pool_types, (B, 18432), (B, 8192), torch.int64),
+                (f"{path} round_best, best_g [cells]: 2 x [{B}, 440000] by "
+                 f"[{B}, 10240] int32", [f32, f32], (B, 440000), (B, 10240),
+                 i32)]:
+            arrays = [(rand(xs) * 1e3).to(dt) for dt in dts]
+            idx = _edge_indices(xs[1], ishape, 17, idt, device)
+            clipped = idx.long().clamp(0, xs[1] - 1)
+            elem = 4
+            run("gather_along_many", label,
+                lambda: gather.gather_along_many(arrays, idx),
+                lambda: gather.gather_along_many_twin(arrays, idx),
+                lambda: [torch.gather(a, 1, clipped) for a in arrays],
+                idx.numel() * idx.element_size() + len(arrays) * elem * (
+                    idx.numel() + min(idx.numel(), xs[0] * xs[1])),
+                cold=xs[0] * xs[1] * elem > 25e6,
+                parent=lambda: [_k4_before(k4_before, a, idx)
+                                for a in arrays], arrays=len(arrays))
+            del arrays, idx, clipped
+    torch.cuda.empty_cache()
+
+    # K4 on what a real hill search gives it: the dedup tables and `cells`
+    # of one round (cells repeat and cluster, unlike the uniform indices
+    # above; the bound counts each distinct cell once, the sector floor
+    # each distinct 32-byte sector), and the walk back through its arena
+    seen = capture_search(device)
+    (round_best, best_g), cells = seen["cells"]
+    B, n_cells = best_g.shape
+    flat = (torch.arange(B, device=device)[:, None] * n_cells
+            + cells.long().clamp(0, n_cells - 1))
+    distinct = int(torch.unique(flat).numel())
+    sectors = int(torch.unique(flat // 8).numel())
+    streams = cells.numel() * 8
+    real = f"search round {REAL_CELLS_ROUND} (real cells)"
+    run("gather_along", f"{real} best_g[cells]: [{B}, {n_cells}] by "
+        f"[{B}, {cells.shape[1]}] int32",
+        lambda: gather.gather_along(best_g, cells),
+        lambda: gather.gather_along_twin(best_g, cells),
+        lambda: torch.gather(best_g, 1, cells.long()),
+        streams + distinct * 4, cold=True,
+        parent=lambda: _k4_before(k4_before, best_g, cells),
+        sector_floor_ms=(streams + sectors * 32) / PEAK_BYTES * 1e3,
+        distinct_cells=distinct, distinct_sectors=sectors,
+        search_rounds=seen["rounds"])
+    run("gather_along_many", f"{real} round_best, best_g [cells]: 2 x "
+        f"[{B}, {n_cells}] by [{B}, {cells.shape[1]}] int32",
+        lambda: gather.gather_along_many([round_best, best_g], cells),
+        lambda: gather.gather_along_many_twin([round_best, best_g], cells),
+        lambda: [torch.gather(a, 1, cells.long())
+                 for a in (round_best, best_g)],
+        cells.numel() * 4 + 2 * (cells.numel() * 4 + distinct * 4),
+        cold=True, parent=lambda: [_k4_before(k4_before, a, cells)
+                                   for a in (round_best, best_g)],
+        arrays=2, distinct_cells=distinct)
+    del round_best, best_g, cells, flat
+    torch.cuda.empty_cache()
+
+    # the walk: the real search's arena and shot nodes, and a synthetic
+    # arena of the planning path's full size whose every walk runs all
+    # R + 1 = 161 steps.  The bound counts the parent reads this data needs
+    # (one per step taken, the last step's excepted), the starts and the
+    # outputs.  The parent column is the loop the walk replaces, with the
+    # parent's K4; `wall_ms` is host time, launches included.
+    fe = FrontendConfig()
+    walks = [("real search arena", *seen["walk"])]
+    walks.append(("full depth", *_forest(PLAN_BATCH, fe.frontier_size,
+                                         fe.max_rounds, 19, device),
+                  fe.max_rounds + 1))
+    for kind, parent_ids, start, steps in walks:
+        Bw, A = parent_ids.shape
+
+        def loop_before(parent_ids=parent_ids, start=start, steps=steps):
+            node, chain, valid = start, [], []
+            for _ in range(steps):
+                nid = node.clamp(min=0)
+                ok = node >= 0
+                chain.append(nid)
+                valid.append(ok)
+                node = torch.where(
+                    ok, _k4_before(k4_before, parent_ids, nid[:, None])[:, 0],
+                    -1)
+            return torch.stack(chain, dim=1), torch.stack(valid, dim=1)
+
+        kern = lambda: gather.walk_parents(parent_ids, start, steps)
+        taken = gather.walk_parents_twin(parent_ids, start, steps)[1] \
+            .sum(dim=1).clamp(max=steps - 1)
+        run("walk_parents", f"path arena walk ({kind}): [{Bw}, {A}], "
+            f"{steps} steps", kern,
+            lambda: gather.walk_parents_twin(parent_ids, start, steps), None,
+            int(taken.sum()) * 4 + Bw * 4 + Bw * steps * 5, cold=False,
+            parent=loop_before, wall_ms=host_ms(kern),
+            wall_ms_parent=host_ms(loop_before),
+            steps_taken_mean=float(taken.float().mean()))
+    del seen, walks
     torch.cuda.empty_cache()
     bad = [v for v in variants if not v["equal"]
            or v["max_abs_err"] > TOL_GATHER]
@@ -829,6 +1125,7 @@ def phase_plan(device, smi):
     conv = ares.converged.cpu().numpy()
     dt = time.perf_counter() - t0
     launches = {**terrain_lookup.launches, **gather.launches}
+    k4_family = {k: launches[k] for k in K4_FAMILY}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     faults = check_paths(grid, kres, *timed, fe.max_vel * fe.time_interval)
@@ -860,8 +1157,9 @@ def phase_plan(device, smi):
         max_vx=worst("max_vx", np.max), max_ax=worst("max_ax", np.max),
         max_ay=worst("max_ay", np.max), max_cur=worst("max_cur", np.max),
         min_cxi=worst("min_cxi", np.min), max_sig=worst("max_sig", np.max),
-        launches=launches, path_faults=faults[:8],
-        n_path_faults=len(faults),
+        launches=launches,
+        k4_family_launches=dict(k4_family, total=sum(k4_family.values())),
+        path_faults=faults[:8], n_path_faults=len(faults),
         finite=bool(torch.isfinite(ares.x[kres.success]).all()),
         x_shape=list(ares.x.shape), peak_mem_gb=peak)
     log("# plan " + json.dumps(out))
@@ -873,7 +1171,7 @@ def phase_plan(device, smi):
     if faults:
         fails.append(f"{len(faults)} path faults: {faults[:4]}")
     for name in ("terrain_tv_packed16", "terrain_tv_pair", "gather_rows",
-                 "gather_along"):
+                 *K4_FAMILY):
         if launches[name] == 0:
             fails.append(f"{name} was never launched on the planning path")
     if not out["finite"] or out["x_shape"] != [B, 38]:
@@ -884,14 +1182,16 @@ def phase_plan(device, smi):
 
 
 def phase_plan_profile(ctx):
-    """Kernel time by name and the device's busy share over one full-width
-    search."""
+    """Kernel time by name, the device's busy share and the launches per
+    round over one full-width search."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from uneven_planner_tpu_torch.frontend import kino_init
+    from uneven_planner_tpu_torch.kernels import gather
     cfg, grid, (starts, goals) = ctx
     to = lambda a: torch.as_tensor(a, device=grid.device)
     torch.cuda.synchronize()
+    gather.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -900,16 +1200,29 @@ def phase_plan_profile(ctx):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     total, rows = device_time_by_kernel(prof)
-    out = dict(rounds=rounds, wall_s=wall,
+    # the loop runs to the first poll of the `done` flags after the last
+    # live round
+    poll = kino_init.POLL_EVERY
+    rounds_run = min(cfg.frontend.max_rounds, -(-rounds // poll) * poll)
+    device_calls = sum(c for _, _, c in rows)
+    k4 = {name: gather.launches[name] for name in K4_FAMILY}
+    out = dict(rounds=rounds, rounds_run=rounds_run, wall_s=wall,
                device_ms=total / 1e3,
                device_busy_share=total / 1e6 / wall,
+               device_calls=device_calls,
+               device_calls_per_round=device_calls / max(rounds_run, 1),
+               k4_family_launches=dict(k4, total=sum(k4.values())),
+               k4_family_launches_per_round=(
+                   k4["gather_along"] + k4["gather_along_many"])
+               / max(rounds_run, 1),
                port_kernels={
                    name: dict(device_ms=sum(u for u, k, _ in rows
                                             if name in k) / 1e3,
                               calls=sum(c for _, k, c in rows if name in k))
                    for name in ("tv_packed16_", "gather_rows_kernel",
                                 "gather_bytes_smem_kernel",
-                                "gather_along_kernel")},
+                                "gather_along_kernel",
+                                "walk_parents_kernel")},
                top=[dict(kernel=k[:80], device_ms=u / 1e3, calls=c)
                     for u, k, c in rows[:10]])
     log("# plan-profile " + json.dumps(out))
@@ -1791,7 +2104,7 @@ def phase_pipeline(device, smi):
         fails.append(f"mean tracking error of the good lanes "
                      f"{out['mean_track_err']} exceeds {MAX_TRACK_ERR} m")
     for name in ("terrain_tv_packed16", "terrain_tv_pair", "gather_rows",
-                 "gather_along", "admm_iterations"):
+                 *K4_FAMILY, "admm_iterations"):
         if launches[name] == 0:
             fails.append(f"{name} was never launched on the pipeline")
     if fails:
@@ -1830,6 +2143,8 @@ def kernel_entries(r):
                   want_jac=True)),
             ("terrain_tv_pair", "uneven_planner_tpu/terrain/grid.py:771",
              pick("terrain_tv_pair", path="headline", want_jac=True))]:
+        parent = {} if v["ms_parent"] is None else dict(
+            ms_parent=v["ms_parent"], layout=v["layout"])
         entries.append(dict(
             name=name, route="cuda", source=terrain_src, replaces=replaces,
             launches=head["launches"][name],
@@ -1837,12 +2152,13 @@ def kernel_entries(r):
             max_abs_err=terrain_err(v),
             tolerance=TOL, ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
-            M=v["M"], exact=v["exact"], want_jac=v["want_jac"],
+            M=v["M"], exact=v["exact"], want_jac=v["want_jac"], **parent,
             **{f"{path}_path": [dict(
                 path=w["path"], M=w["M"], exact=w["exact"],
                 want_jac=w["want_jac"], max_abs_err=terrain_err(w),
                 ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
-                bound_by=w["bound_by"]) for w in variants
+                bound_by=w["bound_by"], ms_parent=w["ms_parent"],
+                layout=w["layout"]) for w in variants
                 if w["name"] == name and w["path"].startswith(path)]
                for path in ("planning", "pipeline")}))
     for name, replaces, shape in [
@@ -1948,6 +2264,45 @@ def kernel_entries(r):
                          iters_mean=f64["iters_mean"])))
     for e in entries[:4]:
         e["launches_pipeline"] = pipe["launches"][e["name"]]
+    # K4 gather_along at `best_g[cells]` beside the parent's, with the
+    # sector floor and the real cells of one search round
+    k4 = entries[3]
+    v = pick("gather_along",
+             shape="path best_g[cells]: [256, 440000] by [256, 10240]")
+    real = next(w for w in gathers if w["name"] == "gather_along"
+                and "real cells" in w["shape"])
+    k4.update(ms_parent=v["ms_parent"], ms_cold_parent=v["ms_cold_parent"],
+              sector_floor_ms=v["sector_floor_ms"],
+              real_cells={k: real[k] for k in (
+                  "shape", "equal", "ms", "ms_parent", "ms_cold",
+                  "plain_ms", "library_ms", "bound_ms", "sector_floor_ms",
+                  "distinct_cells")})
+    # K4's new entries: several arrays at one index (the paired read of
+    # the dedup tables, its other shapes beside it) and the walk (on the
+    # real search's arena, full depth beside it)
+    for name, main in [
+            ("gather_along_many", "path round_best, best_g [cells]: 2 x "
+             "[256, 440000] by [256, 10240] int32"),
+            ("walk_parents", "path arena walk (real search arena)")]:
+        rows = [w for w in gathers if w["name"] == name]
+        v = next(w for w in rows if w["shape"].startswith(main))
+        keys = ("shape", "equal", "max_abs_err", "ms", "ms_parent",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")
+        entries.append(dict(
+            name=name, route="cuda", source=gather_src,
+            replaces="experiments/e5_dyngather.py:37",
+            launches=plan["launches"][name],
+            launches_pipeline=pipe["launches"][name],
+            launches_mpc=mpc["launches"][name],
+            max_abs_err=v["max_abs_err"], tolerance=TOL_GATHER, ms=v["ms"],
+            plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+            bound_by=v["bound_by"], library_ms=v["library_ms"],
+            shape=v["shape"], ms_parent=v["ms_parent"],
+            ms_cold=v["ms_cold"],
+            **({} if "wall_ms" not in v else dict(
+                wall_ms=v["wall_ms"], wall_ms_parent=v["wall_ms_parent"])),
+            other_shapes=[{k: w.get(k) for k in keys}
+                          for w in rows if w is not v]))
     return entries
 
 

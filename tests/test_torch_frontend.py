@@ -139,6 +139,114 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take():
     assert gather.launches == before
 
 
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("idt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_arrays", [1, 2, 3, 8])
+def test_gather_along_many_twin_is_one_gather_along_per_array(axis, idt,
+                                                              n_arrays):
+    """One K4 launch for several arrays read at one index: float32 and
+    int32 fields mixed (the search's pool), and float64 with int64, equal
+    one `gather_along_twin` per array bit for bit, at edge and
+    out-of-range indices; the wrapper on CPU tensors is the twin."""
+    rng = np.random.default_rng(10 * axis + n_arrays)
+    shape_x, shape_i = ((40, 300), (40, 70)) if axis == 1 \
+        else ((300, 40), (90, 40))
+    n = shape_x[axis]
+    idx = T(_indices(rng, n, int(np.prod(shape_i))).reshape(shape_i)) \
+        .to(idt)
+    for dtypes in ((torch.float32, torch.int32), (torch.float64,
+                                                  torch.int64)):
+        xs = [T(rng.normal(size=shape_x) * 1e3).to(dtypes[j % 2])
+              for j in range(n_arrays)]
+        want = [gather.gather_along_twin(x, idx, axis) for x in xs]
+        for got in (gather.gather_along_many_twin(xs, idx, axis),
+                    gather.gather_along_many(xs, idx, axis)):
+            assert len(got) == n_arrays
+            for g, w, x in zip(got, want, xs):
+                assert g.dtype == x.dtype and torch.equal(g, w)
+
+
+def test_gather_along_many_refuses_what_the_kernel_does_not_take():
+    """Mixed element widths, no array or more than eight, arrays of two
+    shapes: refused on every device, before anything is counted."""
+    before = dict(gather.launches)
+    idx = torch.zeros((4, 3), dtype=torch.int64)
+    f32, i64 = torch.zeros((4, 8)), torch.zeros((4, 8), dtype=torch.int64)
+    with pytest.raises(TypeError, match="width"):
+        gather.gather_along_many([f32, i64], idx)
+    with pytest.raises(ValueError):
+        gather.gather_along_many([], idx)
+    with pytest.raises(ValueError):
+        gather.gather_along_many([f32] * (gather.MAX_ARRAYS + 1), idx)
+    with pytest.raises(ValueError):
+        gather.gather_along_many([f32, torch.zeros((4, 9))], idx)
+    assert gather.launches == before
+
+
+def _old_walk(parent, start, steps):
+    """The search's walk as the port wrote it before `walk_parents`: a loop
+    of one-column gathers."""
+    node = start
+    chain, valid = [], []
+    for _ in range(steps):
+        nid = node.clamp(min=0)
+        ok = node >= 0
+        chain.append(nid)
+        valid.append(ok)
+        node = torch.where(
+            ok, gather.gather_along(parent, nid[:, None])[:, 0], -1)
+    return torch.stack(chain, dim=1), torch.stack(valid, dim=1)
+
+
+def _parent_forest(rng, B, A):
+    """Random parent arenas: node i's parent lies below i or is a root
+    (-1); unused slots hold -1, as the search leaves them."""
+    parent = np.full((B, A), -1, np.int32)
+    for b in range(B):
+        used = rng.integers(1, A + 1)
+        for i in range(1, used):
+            parent[b, i] = rng.integers(-1, i)
+    return parent
+
+
+@pytest.mark.parametrize("B,A,steps", [(5, 40, 61), (16, 300, 7),
+                                       (3, 1, 4), (1, 9, 1)])
+def test_walk_parents_twin_equals_the_loop(B, A, steps):
+    """`walk_parents` (its twin on the CPU) equals the loop it replaces on
+    random parent forests, from random nodes, from roots, from -1 and from
+    an id beyond the arena (clipped for the read, kept in the chain)."""
+    rng = np.random.default_rng(B * A + steps)
+    parent = T(_parent_forest(rng, B, A))
+    start = T(rng.integers(0, A, B).astype(np.int32))
+    start[0] = -1
+    if B > 2:
+        start[1], start[2] = 0, A + 5
+    want = _old_walk(parent, start, steps)
+    for got in (gather.walk_parents_twin(parent, start, steps),
+                gather.walk_parents(parent, start, steps)):
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not want[1][0].any() and not want[0][0].any()
+    # a walk stops at its root: every row is valid for a prefix only
+    v = want[1].to(torch.int32)
+    assert torch.equal(v, torch.sort(v, dim=1, descending=True).values)
+
+
+def test_walk_parents_refuses_what_the_kernel_does_not_take():
+    parent = torch.zeros((4, 8), dtype=torch.int32)
+    start = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        gather.walk_parents(parent.long(), start, 3)
+    with pytest.raises(TypeError):
+        gather.walk_parents(parent, start.long(), 3)
+    with pytest.raises(ValueError):
+        gather.walk_parents(parent, start[:3], 3)
+    with pytest.raises(ValueError):
+        gather.walk_parents(parent[:, :0], start, 3)
+    got = gather.walk_parents(parent, start, 0)
+    assert got[0].shape == (4, 0) and got[1].shape == (4, 0)
+
+
 # ---------------------------------------------------------------------------
 # Dubins and the bicycle step
 # ---------------------------------------------------------------------------

@@ -105,6 +105,37 @@ def test_packed16_kernel_equals_twin_bit_for_bit_on_card(cuda_grid, M, exact,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 255, 5760, 43520, 100003])
+@pytest.mark.parametrize("want_jac", [False, True])
+def test_pair_kernel_equals_twin_bit_for_bit_on_card(cuda_grid, M, want_jac):
+    """K2 equals its twin bit for bit in the instantiation its wrapper picks
+    and in every other one (both layouts, 32- and 64-bit index math), at
+    the pipeline's and the planning path's init_scaling sizes, below a
+    block and beyond the quads' range."""
+    g = cuda_grid
+    px, py, yaw = (t[:M].contiguous() for t in _poses(max(M, 256), 11,
+                                                       g.device))
+    geom = tgrid.kernel_geometry(g)
+    want = tgrid.pair_tv_jac(g, px, py, yaw, want_jac)
+    runs = {"picked": lambda: kernels.terrain_tv_pair(
+        g.data_pair, geom, px, py, yaw, want_jac)}
+    for layout in kernels.LAYOUTS:
+        for idx32 in (True, False):
+            runs[(layout, idx32)] = (
+                lambda layout=layout, idx32=idx32: kernels._launch_pair(
+                    g.data_pair, geom, px, py, yaw, want_jac, layout=layout,
+                    idx32=idx32))
+    for which, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), which
+        if want_jac:
+            assert torch.equal(got[1], want[1]), which
+        else:
+            assert got[1] is None
+
+
+@pytest.mark.cuda
 def test_autograd_on_card_goes_through_kernel(cuda_grid):
     """Reverse and forward mode on CUDA tensors launch the kernel (once per
     forward) and agree with the twin's J."""
@@ -142,6 +173,20 @@ def test_packed16_index_width_and_layout_choice():
     for M in (132 * 128 + 1, 43520, 368640, 2621440):
         assert kernels.packed16_layout(M, 132) == "thread"
     assert kernels.packed16_layout(43520, 400) == "quad"
+
+
+def test_pair_index_width_and_layout_choice():
+    """K2's instantiation: 32-bit index math below 2^31 16-byte words (the
+    hill's pair table has 5,120,000), a quad of lanes per sample while the
+    quads fit in half a wave of 128-thread blocks (2,048 threads an SM), so
+    at the pipeline's init_scaling size, a thread per sample from the
+    planning step's up."""
+    assert kernels.index_bits(2 * 200 * 200 * 64) == 32
+    for M in (1, 5760, 21760, 132 * 256):
+        assert kernels.pair_layout(M, 132) == "quad"
+    for M in (132 * 256 + 1, 43520, 218880, 368640, 1653760):
+        assert kernels.pair_layout(M, 132) == "thread"
+    assert kernels.pair_layout(43520, 200) == "quad"
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +307,101 @@ def test_gather_along_kernel_matches_twin_on_card(card, dtype, axis,
         assert torch.equal(got, gather.gather_along_twin(x, idx, axis))
 
 
+_ALONG_KINDS = [(off32, vec) for off32 in (True, False)
+                for vec in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_arrays", [1, 2, 3, 8])
+def test_gather_along_many_matches_twin_on_card(card, width, idx_dtype,
+                                                n_arrays):
+    """`gather_along_many` equals one twin per array bit for bit, float and
+    integer fields mixed (4-byte: float32 and int32; 8-byte: float64 and
+    int64), in the instantiation the wrapper picks and in each of the
+    others (32- and 64-bit offsets, vector and scalar index paths), on both
+    axes, at a shape whose rows are no multiple of the vector width and at
+    the search's [B, 8192] by [B, 1024]; `gather_along` is the one-array
+    case and counts under its own name."""
+    from uneven_planner_tpu_torch.kernels import gather
+    rng = np.random.default_rng(width + n_arrays)
+    dts = (torch.float32, torch.int32) if width == 4 else (torch.float64,
+                                                           torch.int64)
+    cases = [((37, 1000), (37, 61), 1), ((1000, 37), (90, 37), 0),
+             ((64, 8192), (64, 1024), 1), ((5, 3), (5, 1), 1)]
+    for xs_shape, ishape, axis in cases:
+        xs = [torch.tensor(rng.normal(size=xs_shape) * 1e3)
+              .to(dts[j % 2]).to(card) for j in range(n_arrays)]
+        idx = torch.tensor(_indices(rng, xs_shape[axis], ishape)) \
+            .to(idx_dtype).to(card)
+        want = gather.gather_along_many_twin(xs, idx, axis)
+        before = dict(gather.launches)
+        got = gather.gather_along_many(xs, idx, axis)
+        torch.cuda.synchronize()
+        assert gather.launches["gather_along_many"] \
+            == before["gather_along_many"] + 1
+        assert gather.launches["gather_along"] == before["gather_along"]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for off32, vec in _ALONG_KINDS:
+            if vec and ishape[1] % gather.ALONG_VEC:
+                continue
+            got = gather._launch_along(xs, idx, axis, "gather_along_many",
+                                       off32=off32, vec=vec)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                (xs_shape, off32, vec)
+        before = gather.launches["gather_along"]
+        one = gather.gather_along(xs[-1], idx, axis)
+        assert gather.launches["gather_along"] == before + 1
+        assert torch.equal(one, want[-1])
+
+
+@pytest.mark.cuda
+def test_gather_along_many_refuses_mixed_widths_on_card(card):
+    from uneven_planner_tpu_torch.kernels import gather
+    idx = torch.zeros((4, 4), dtype=torch.int32, device=card)
+    f32 = torch.zeros((4, 8), device=card)
+    before = dict(gather.launches)
+    with pytest.raises(TypeError, match="width"):
+        gather.gather_along_many([f32, f32.double()], idx)
+    with pytest.raises(TypeError):
+        gather.gather_along_many([f32.half(), f32.half()], idx)
+    with pytest.raises(ValueError):
+        gather.gather_along_many([f32, f32.t().contiguous().t()], idx)
+    assert gather.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,A,steps", [(256, 163841, 161), (5, 40, 61),
+                                       (130, 300, 7), (3, 1, 4)])
+def test_walk_parents_matches_twin_on_card(card, B, A, steps):
+    """The walk in one launch equals its twin bit for bit on random parent
+    forests (roots -1, chains as deep as the arena allows), from random
+    nodes, from -1, from a root and from an id beyond the arena."""
+    from uneven_planner_tpu_torch.kernels import gather
+    rng = np.random.default_rng(B + steps)
+    parent = np.full((B, A), -1, np.int32)
+    if A > 1:
+        # node i's parent is below i or -1; one long chain in lane 0
+        parent[:, 1:] = (rng.random((B, A - 1)) * np.arange(1, A)) \
+            .astype(np.int32)
+        parent[:, 1:][rng.random((B, A - 1)) < 0.05] = -1
+        parent[0, 1:] = np.arange(0, A - 1)
+    start = rng.integers(0, A, B).astype(np.int32)
+    start[0] = A - 1
+    start[1:3] = [-1, A + 5][:min(2, B - 1)]
+    parent_t, start_t = torch.tensor(parent).to(card), \
+        torch.tensor(start).to(card)
+    want = gather.walk_parents_twin(parent_t, start_t, steps)
+    before = gather.launches["walk_parents"]
+    got = gather.walk_parents(parent_t, start_t, steps)
+    torch.cuda.synchronize()
+    assert gather.launches["walk_parents"] == before + 1
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int64])
 def test_gather_kernels_take_8_byte_elements_at_tracking_shapes_on_card(
@@ -338,8 +478,17 @@ def test_search_on_card_launches_the_gather_kernels(cuda_grid):
     before = dict(gather.launches), kernels.launches["terrain_tv_packed16"]
     res = kino_init.plan(cuda_grid, fe, start, goal)
     assert res.success.all()
-    assert gather.launches["gather_rows"] > before[0]["gather_rows"]
-    assert gather.launches["gather_along"] > before[0]["gather_along"]
+    for name in ("gather_rows", "gather_along", "gather_along_many"):
+        assert gather.launches[name] > before[0][name], name
+    assert gather.launches["walk_parents"] == before[0]["walk_parents"] + 1
+    # per round run: the pool by `sel` and by `keep`, the two dedup tables
+    # at `cells` (float32: one launch each); after the rounds the arena by
+    # the path's ids and by the shot node.  The loop runs until the first
+    # poll of the `done` flags after the last scenario's last round
+    poll = kino_init.POLL_EVERY
+    run = min(fe.max_rounds, -(-int(res.rounds.max()) // poll) * poll)
+    assert gather.launches["gather_along_many"] \
+        - before[0]["gather_along_many"] == 3 * run + 2
     assert kernels.launches["terrain_tv_packed16"] > before[1]
     for lane in range(2):
         p = kino_init.extract_path(res, lane)

@@ -85,9 +85,21 @@ def test_synthetic_hill_field_matches_jax(dtype):
 
 
 def test_pair_table_bits_match_jax(grids):
+    """The port's pair table holds the JAX package's values, transposed and
+    with the cells ordered x fastest (cell (x, y, w) at row
+    (y * Nyaw + w) * Nx + x), compared as the f16 table's bits are."""
     jg, tg = grids
-    np.testing.assert_array_equal(tg.data_pair.numpy(),
-                                  np.asarray(jg.data_pair).T)
+    nx, ny, nyaw = tg.voxel_num
+    got = tg.data_pair.numpy()
+    jp = np.asarray(jg.data_pair).T
+    np.testing.assert_array_equal(
+        got.view(np.uint64),
+        jp.reshape(nx, ny, nyaw, 8).transpose(1, 2, 0, 3).reshape(-1, 8)
+        .view(np.uint64))
+    x, y, w = nx - 2, 1, nyaw - 1
+    np.testing.assert_array_equal(
+        got[tgrid.cell_row(x, y, w, tg.voxel_num)],
+        jp[(x * ny + y) * nyaw + w])
 
 
 def test_packed16_table_bits_match_jax(grids):
@@ -105,7 +117,7 @@ def test_packed16_table_bits_match_jax(grids):
     jrow = np.asarray(jg.data_packed16).view(np.uint32)[
         :, (x * ny + y) * nyaw + w]
     np.testing.assert_array_equal(
-        words[tgrid.packed16_row(x, y, w, tg.voxel_num), :6], jrow)
+        words[tgrid.cell_row(x, y, w, tg.voxel_num), :6], jrow)
 
 
 @pytest.mark.parametrize("mode", MODES)

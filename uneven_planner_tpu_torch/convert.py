@@ -41,8 +41,8 @@ def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
 
     `data_pair` ([8, Ncells]) and `data_packed16` ([6, 2*Ncells], f32 or
     uint32 words) in the JAX package's layout are converted (transposed,
-    and the packed table's cells reordered with x fastest) when given; a
-    table not given is built in the port."""
+    and their cells reordered with x fastest) when given; a table not given
+    is built in the port."""
     dev = resolve_device(device)
     occ = np.asarray(occ)
     occ_xy = occ.any(axis=-1) if occ_xy is None else np.asarray(occ_xy)
@@ -52,7 +52,8 @@ def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
         yaw_resolution=float(yaw_resolution),
         origin=tuple(float(o) for o in origin), gravity=float(gravity))
     if data_pair is not None:
-        grid = grid.replace(data_pair=_t(np.asarray(data_pair).T, dev))
+        grid = grid.replace(data_pair=_t(tgrid.x_fastest(
+            np.asarray(data_pair).T, grid.voxel_num), dev))
     else:
         grid = tgrid.with_pair_table(grid)
     if data_packed16 is not None:
@@ -61,7 +62,7 @@ def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
         packed = np.zeros((words.shape[0], 8), np.int32)
         packed[:, :6] = words
         grid = grid.replace(data_packed16=_t(
-            tgrid.packed16_x_fastest(packed, grid.voxel_num), dev))
+            tgrid.x_fastest(packed, grid.voxel_num), dev))
     else:
         grid = tgrid.with_packed_f16(grid)
     return grid

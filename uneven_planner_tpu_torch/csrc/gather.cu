@@ -13,7 +13,11 @@
 //   of minco.eval_traj.
 // K4 gather_along replaces experiments/e5_dyngather.py:bench, i.e.
 //   take_along_axis(x, idx, axis) on a 2-D array: what every a[idx] of
-//   frontend/kino_init.py:plan becomes under a batch of scenarios.
+//   frontend/kino_init.py:plan becomes under a batch of scenarios.  The
+//   same kernel reads up to kMaxArrays arrays of one shape at one index in
+//   one launch (gather_along_many: the search's pool fields, its two dedup
+//   tables at `cells`, the arena's x, y and yaw), and walk_parents_kernel
+//   does the search's walk back through its arena in one launch.
 //
 // Both clip the index into [0, N-1], as jnp.take(mode="clip") does.  Both
 // copy bits, so only an element's width matters: K3 moves a row as words
@@ -22,14 +26,31 @@
 //
 // What bounds them: bytes.  Neither does arithmetic beyond the address; the
 // least traffic is every index in once, every output element out once, and
-// each table row that is touched in once.  Design: one thread per output
-// word, consecutive threads on consecutive words of an output row, so index
-// loads and stores coalesce and only the table read is scattered; rows whose
-// byte length is a multiple of 16 move as 16-byte words.  The tables of the
-// front end
-// (40 KB of occupancy, 1.8 MB per scenario of dedup cells) stay in the 50 MB
-// L2 across a launch, so the scattered reads are mostly L2 hits.  Nothing is
-// rounded: results equal the plain PyTorch versions bit for bit.
+// each table row that is touched in once.  Nothing is rounded: results
+// equal the plain PyTorch versions bit for bit.
+//
+// K3's design: one thread per output word, consecutive threads on
+// consecutive words of an output row, so index loads and stores coalesce
+// and only the table read is scattered; rows whose byte length is a
+// multiple of 16 move as 16-byte words.
+//
+// K4's design.  Most of the search's K4 launches read small pools at the
+// launch floor, so the first gain is fewer launches: one for every array
+// read at one index (21 launches a round become 6) and one for the walk
+// that was a loop of ~800 small launches.  The one large read, the
+// [B, 440,000] dedup tables at [B, 10,240] cells, gathers from tables far
+// beyond the L2; a round's real cells repeat and cluster (~90,000 distinct
+// of 2.6 M), so most reads hit the L2 and the cost is in issuing them.  A
+// thread takes kAlongVec consecutive indices in one vector load and issues
+// all their table reads (for every array) before its first store; the row
+// comes from the grid's y dimension, so there is no 64-bit division;
+// offsets are 32-bit where the arrays have fewer than 2^31 elements (a
+// 64-bit instantiation beside it).  On the card (PERF.md,
+// chip_studies/k4_ablation.py) four indices a thread halve the time of one
+// on real cells; on uniform random cells, where every read is a DRAM
+// sector, one index a thread is ~10% faster.  Evict-first hints on the
+// index and output streams slowed one of the two large reads of a round as
+// much as they sped up the other, and are not used.
 //
 // K3 on a byte table that fits in shared memory (one byte per row, at most
 // kSmemTable bytes: the 40,000-byte occupancy table of the search) takes its
@@ -46,6 +67,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -170,33 +193,191 @@ int launch_bytes_smem(const void* table, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// out[r, c] = x[r * s_row + c * s_col + clip(idx[r, c]) * s_gather]:
-// axis 1 of x [R, N] is (s_row, s_col, s_gather) = (N, 0, 1);
-// axis 0 of x [N, C] is (0, 1, C).  T is a 4- or 8-byte word.
-template <typename T, typename IdxT>
-__global__ void gather_along_kernel(const T* __restrict__ x,
-                                    const IdxT* __restrict__ idx,
-                                    T* __restrict__ out,
-                                    long long total, int cols, long long n,
-                                    long long s_row, long long s_col,
-                                    long long s_gather) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const long long r = t / cols;
-  const long long c = t - r * cols;
-  out[t] = x[r * s_row + c * s_col + clip_index(idx[t], n) * s_gather];
+// ---------------------------------------------------------------------------
+// K4: gather_along, gather_along_many and walk_parents
+// ---------------------------------------------------------------------------
+
+constexpr int kAlongThreads = 128;
+constexpr int kAlongVec = 4;      // consecutive indices a thread takes
+constexpr int kMaxArrays = 8;     // arrays one launch reads at one index
+constexpr int kMaxGridY = 65535;
+
+struct AlongArrays {
+  const void* x[kMaxArrays];
+  void* out[kMaxArrays];
+};
+
+// rows and cols of idx and of every out; x's length along the gathered
+// axis and its strides (see gather_along_kernel)
+struct AlongShape {
+  long long rows, cols, n, s_row, s_col, s_gather;
+};
+
+// the kAlongVec indices at idx + base, all loads in flight: one 16-byte
+// load of four int32, two of four int64 (VEC), else one load each for
+// those before `cols` (the others read 0)
+template <typename IdxT, bool VEC, typename Off>
+__device__ __forceinline__ void load_indices(const IdxT* __restrict__ idx,
+                                             Off base, Off c0, Off cols,
+                                             IdxT (&v)[kAlongVec]) {
+  if constexpr (VEC) {
+    if constexpr (sizeof(IdxT) == 4) {
+      const int4 q = *reinterpret_cast<const int4*>(idx + base);
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else {
+      const longlong2* p = reinterpret_cast<const longlong2*>(idx + base);
+      const longlong2 a = p[0], b = p[1];
+      v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kAlongVec; ++k)
+      v[k] = c0 + k < cols ? idx[base + k] : IdxT(0);
+  }
+}
+
+// clip(v, 0, n - 1) as an offset: compared in the wider of the two types,
+// so an int64 index outside 32 bits clips before it is narrowed
+template <typename Off, typename IdxT>
+__device__ __forceinline__ Off clip_offset(IdxT v, Off n) {
+  using W = decltype(IdxT(0) + Off(0));
+  const W w = (W)v;
+  return w < 0 ? Off(0) : (w >= (W)n ? n - 1 : (Off)w);
+}
+
+// out_a[r, c] = x_a[r * s_row + c * s_col + clip(idx[r, c]) * s_gather] for
+// the n_arrays arrays a: axis 1 of x [R, N] is (s_row, s_col, s_gather) =
+// (N, 0, 1); axis 0 of x [N, C] is (0, 1, C).  idx and every out are
+// contiguous [rows, cols].  The row r comes from the block's and the
+// grid's y dimensions (a loop over rows beyond the grid's limit), the
+// column from x: no division.  A block is kAlongThreads threads, as wide
+// in x as a row needs (at least a warp) and as many rows high as that
+// leaves, so short rows share a block.
+// Each thread takes kAlongVec consecutive indices, loads them at once,
+// issues every array's table reads, and only then stores.  T is a 4- or
+// 8-byte word; Off is int where every offset fits (the wrapper's promise),
+// long long otherwise.  VEC: cols is a multiple of kAlongVec and idx and
+// the outputs are 16-byte aligned, so indices and outputs move as vectors.
+template <typename T, typename IdxT, typename Off, bool VEC>
+__global__ void __launch_bounds__(kAlongThreads)
+    gather_along_kernel(AlongArrays a, int n_arrays,
+                        const IdxT* __restrict__ idx, Off rows, Off cols,
+                        Off n, Off s_row, Off s_col, Off s_gather) {
+  const Off c0 = ((Off)blockIdx.x * blockDim.x + (Off)threadIdx.x) *
+                 kAlongVec;
+  if (c0 >= cols) return;
+  for (Off r = (Off)blockIdx.y * blockDim.y + threadIdx.y; r < rows;
+       r += (Off)gridDim.y * blockDim.y) {
+    const Off base = r * cols + c0;
+    IdxT raw[kAlongVec];
+    load_indices<IdxT, VEC, Off>(idx, base, c0, cols, raw);
+    Off src[kAlongVec];
+#pragma unroll
+    for (int k = 0; k < kAlongVec; ++k)
+      src[k] = r * s_row + (c0 + k) * s_col + clip_offset<Off>(raw[k], n) *
+                                                  s_gather;
+    T v[kMaxArrays][kAlongVec];
+#pragma unroll
+    for (int j = 0; j < kMaxArrays; ++j) {
+      if (j >= n_arrays) break;
+      const T* x = static_cast<const T*>(a.x[j]);
+#pragma unroll
+      for (int k = 0; k < kAlongVec; ++k)
+        if (VEC || c0 + k < cols) v[j][k] = __ldg(x + src[k]);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxArrays; ++j) {
+      if (j >= n_arrays) break;
+      T* out = static_cast<T*>(a.out[j]) + base;
+      if constexpr (VEC && sizeof(T) == 4) {
+        *reinterpret_cast<uint4*>(out) =
+            make_uint4(v[j][0], v[j][1], v[j][2], v[j][3]);
+      } else if constexpr (VEC) {
+        ulonglong2* o = reinterpret_cast<ulonglong2*>(out);
+        o[0] = make_ulonglong2(v[j][0], v[j][1]);
+        o[1] = make_ulonglong2(v[j][2], v[j][3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kAlongVec; ++k)
+          if (c0 + k < cols) out[k] = v[j][k];
+      }
+    }
+  }
+}
+
+template <typename T, typename IdxT, typename Off, bool VEC>
+int launch_along(const AlongArrays& a, int n_arrays, const void* idx,
+                 const AlongShape& sh, cudaStream_t stream) {
+  int tx = kAlongThreads;  // threads along a row: the fewest that cover it
+  while (tx > 32 && (long long)(tx / 2) * kAlongVec >= sh.cols) tx /= 2;
+  const int ty = kAlongThreads / tx;
+  const long long bx = (sh.cols + (long long)tx * kAlongVec - 1) /
+                       ((long long)tx * kAlongVec);
+  const long long by = (sh.rows + ty - 1) / ty;
+  if (bx > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)bx, (unsigned)(by < kMaxGridY ? by : kMaxGridY));
+  const dim3 block((unsigned)tx, (unsigned)ty);
+  gather_along_kernel<T, IdxT, Off, VEC><<<grid, block, 0, stream>>>(
+      a, n_arrays, (const IdxT*)idx, (Off)sh.rows, (Off)sh.cols, (Off)sh.n,
+      (Off)sh.s_row, (Off)sh.s_col, (Off)sh.s_gather);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename IdxT>
-int launch_along(const void* x, const void* idx, void* out, long long total,
-                 int cols, long long n, long long s_row, long long s_col,
-                 long long s_gather, cudaStream_t stream) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  gather_along_kernel<T, IdxT><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)x, (const IdxT*)idx, (T*)out, total, cols, n, s_row, s_col,
-      s_gather);
-  return (int)cudaGetLastError();
+int launch_along_off(const AlongArrays& a, int n_arrays, const void* idx,
+                     const AlongShape& sh, bool off32, bool vec,
+                     cudaStream_t s) {
+  if (off32)
+    return vec ? launch_along<T, IdxT, int, true>(a, n_arrays, idx, sh, s)
+               : launch_along<T, IdxT, int, false>(a, n_arrays, idx, sh, s);
+  return vec ? launch_along<T, IdxT, long long, true>(a, n_arrays, idx, sh, s)
+             : launch_along<T, IdxT, long long, false>(a, n_arrays, idx, sh,
+                                                       s);
+}
+
+// The walk back through the search's arena (kino_init.py: retrievePath):
+// for s < steps, rev_ids[b, s] = max(node, 0) and rev_valid[b, s] =
+// node >= 0, then node = parent[b, clip(node)] while node >= 0, else -1.
+// The walk is a chain of dependent loads, as long as the path.  A warp per
+// scenario: every lane walks the same chain (one load a step, broadcast to
+// the warp), lane l keeps the node of step base + l, and every 32 steps the
+// warp stores 32 consecutive ids and flags at once.  Once node < 0 the
+// rest of the row is (0, false), stored 32 at a time without loads.  (A
+// thread per scenario spent its time on the row's scattered one-element
+// stores, on two SMs: chip_studies/k4_ablation.py.)
+constexpr int kWalkWarps = kAlongThreads / 32;
+
+__global__ void __launch_bounds__(kAlongThreads)
+    walk_parents_kernel(const int* __restrict__ parent,
+                        const int* __restrict__ start,
+                        int* __restrict__ rev_ids,
+                        uint8_t* __restrict__ rev_valid, int batch,
+                        long long arena, int steps) {
+  const int b = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (b >= batch) return;
+  const int* row = parent + (long long)b * arena;
+  int* ids = rev_ids + (long long)b * steps;
+  uint8_t* valid = rev_valid + (long long)b * steps;
+  int node = __ldg(start + b);
+  for (int base = 0; base < steps; base += 32) {
+    int mine = 0;
+    bool ok = false;
+    for (int k = 0; k < 32 && node >= 0; ++k) {
+      const int s = base + k;
+      if (s >= steps) break;
+      if (lane == k) {
+        mine = node;
+        ok = true;
+      }
+      node = s + 1 < steps ? __ldg(row + (node < arena ? node : arena - 1))
+                           : -1;
+    }
+    if (base + lane < steps) {
+      ids[base + lane] = mine;
+      valid[base + lane] = ok;
+    }
+  }
 }
 
 template <typename T, typename IdxT>
@@ -262,31 +443,54 @@ int gather_rows_bytes_smem(const void* table, const void* idx, void* out,
                : launch_bytes_smem<int32_t>(table, idx, out, m, n, head, s);
 }
 
-// K4.  x holds elem_bytes-byte elements (4 or 8); idx and out are
-// contiguous [rows, cols].
-int gather_along(const void* x, const void* idx, void* out, long long rows,
-                 int cols, long long n, long long s_row, long long s_col,
-                 long long s_gather, int elem_bytes, int idx64,
+// K4.  n_arrays (1 to kMaxArrays) arrays xs of elem_bytes-byte elements
+// (4 or 8), one shape, read at one index array idx [rows, cols] (int32, or
+// int64 when idx64) into outs, each contiguous [rows, cols].  off32: every
+// offset into x, idx and out fits in an int (the caller's promise, from the
+// sizes); vec: cols % 4 == 0 and idx and outs 16-byte aligned.
+int gather_along(const void* const* xs, void* const* outs, int n_arrays,
+                 const void* idx, long long rows, long long cols, long long n,
+                 long long s_row, long long s_col, long long s_gather,
+                 int elem_bytes, int idx64, int off32, int vec,
                  void* stream) {
-  const long long total = rows * cols;
+  if (n_arrays < 1 || n_arrays > kMaxArrays || rows <= 0 || cols <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (vec && cols % kAlongVec) return (int)cudaErrorInvalidValue;
+  AlongArrays a = {};
+  for (int j = 0; j < n_arrays; ++j) {
+    a.x[j] = xs[j];
+    a.out[j] = outs[j];
+  }
+  const AlongShape sh = {rows, cols, n, s_row, s_col, s_gather};
   cudaStream_t s = (cudaStream_t)stream;
   switch (elem_bytes) {
     case 8:
-      return idx64 ? launch_along<uint64_t, int64_t>(x, idx, out, total, cols,
-                                                     n, s_row, s_col,
-                                                     s_gather, s)
-                   : launch_along<uint64_t, int32_t>(x, idx, out, total, cols,
-                                                     n, s_row, s_col,
-                                                     s_gather, s);
+      return idx64 ? launch_along_off<unsigned long long, long long>(
+                         a, n_arrays, idx, sh, off32, vec, s)
+                   : launch_along_off<unsigned long long, int>(
+                         a, n_arrays, idx, sh, off32, vec, s);
     case 4:
-      return idx64 ? launch_along<uint32_t, int64_t>(x, idx, out, total, cols,
-                                                     n, s_row, s_col,
-                                                     s_gather, s)
-                   : launch_along<uint32_t, int32_t>(x, idx, out, total, cols,
-                                                     n, s_row, s_col,
-                                                     s_gather, s);
+      return idx64 ? launch_along_off<unsigned int, long long>(
+                         a, n_arrays, idx, sh, off32, vec, s)
+                   : launch_along_off<unsigned int, int>(a, n_arrays, idx,
+                                                         sh, off32, vec, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K4's walk: parent [batch, arena] int32, start [batch] int32, rev_ids
+// [batch, steps] int32, rev_valid [batch, steps] bytes (0 or 1).
+int walk_parents(const void* parent, const void* start, void* rev_ids,
+                 void* rev_valid, int batch, long long arena, int steps,
+                 void* stream) {
+  if (batch <= 0 || arena <= 0 || steps <= 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((batch + kWalkWarps - 1) /
+                                     kWalkWarps);
+  walk_parents_kernel<<<blocks, kAlongThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)parent, (const int*)start, (int*)rev_ids,
+      (uint8_t*)rev_valid, batch, arena, steps);
+  return (int)cudaGetLastError();
 }
 
 const char* gather_error_string(int code) {

@@ -16,9 +16,11 @@ Where the JAX package maps a single-scenario `plan` over scenarios with
 `vmap`, `plan` here carries the scenario dimension B itself: every per-node
 array is [B, ...].  Each `a[idx]` of the single-scenario code is then a read
 along axis 1, and goes through the gather kernel K4
-(`kernels/gather.py:gather_along`); occupancy and sigma go through the grid
-lookups (kernels K3 and K1).  The scatter-mins and the selections of the
-best F and the best Pn stay PyTorch calls.
+(`kernels/gather.py`): arrays read at one index share one launch
+(`gather_along_many`), and the walk back through the arena is one launch
+(`walk_parents`) where the JAX package scans.  Occupancy and sigma go
+through the grid lookups (kernels K3 and K1).  The scatter-mins and the
+selections of the best F and the best Pn stay PyTorch calls.
 
 Selection order.  `jax.lax.top_k` returns the lower index first among equal
 values; `torch.topk` promises no order.  The open pool is mostly +inf and
@@ -44,7 +46,9 @@ import torch
 
 from uneven_planner_tpu_torch.config import FrontendConfig
 from uneven_planner_tpu_torch.frontend import dubins
-from uneven_planner_tpu_torch.kernels.gather import gather_along
+from uneven_planner_tpu_torch.kernels.gather import (gather_along,
+                                                     gather_along_many,
+                                                     walk_parents)
 from uneven_planner_tpu_torch.terrain import grid as tgrid
 from uneven_planner_tpu_torch.terrain.grid import _div, _to_index
 
@@ -100,6 +104,18 @@ class KinoResult(NamedTuple):
 
 def _yaw_bins(cfg: FrontendConfig) -> int:
     return max(int(math.ceil(2.0 * math.pi / cfg.dedup_yaw_resolution)), 1)
+
+
+def _gather_fields(fields: dict, idx: torch.Tensor) -> dict:
+    """{k: fields[k] at idx along axis 1}: one K4 launch for the fields of
+    each element width (all of them in float32; float64 poses and int32
+    parents take two)."""
+    out = {}
+    for size in {a.element_size() for a in fields.values()}:
+        keys = [k for k, a in fields.items() if a.element_size() == size]
+        out.update(zip(keys, gather_along_many([fields[k] for k in keys],
+                                               idx)))
+    return {k: out[k] for k in fields}
 
 
 def _frozen(done, old, new):
@@ -221,7 +237,7 @@ def _plan(grid, cfg, start, goal, n_shot_samples, with_arena):
         # the best F open nodes expand and become arena nodes
         sel = torch.sort(pool["f"], dim=1, stable=True).indices[:, :F] \
             .contiguous()
-        exp = {k: gather_along(a, sel) for k, a in pool.items()}
+        exp = _gather_fields(pool, sel)
         exp_x, exp_y, exp_yaw, exp_g = (exp[k] for k in ("x", "y", "yaw", "g"))
         active = torch.isfinite(exp["f"])
         closed_f = pool["f"].scatter(1, sel, math.inf)
@@ -277,8 +293,8 @@ def _plan(grid, cfg, start, goal, n_shot_samples, with_arena):
         cells64 = cells.long()
         round_best = full((B, n_cells), math.inf).scatter_reduce_(
             1, cells64, g_new, "amin")
-        improved = (g_new <= gather_along(round_best, cells)) \
-            & (g_new < gather_along(best_g, cells) - 1e-9) \
+        round_at, best_at = gather_along_many([round_best, best_g], cells)
+        improved = (g_new <= round_at) & (g_new < best_at - 1e-9) \
             & torch.isfinite(g_new)
         first_idx = full((B, n_cells), FI, i32).scatter_reduce_(
             1, cells64, torch.where(improved, cand_no, FI), "amin")
@@ -293,10 +309,10 @@ def _plan(grid, cfg, start, goal, n_shot_samples, with_arena):
             .contiguous()
         cand = dict(x=cx, y=cy, yaw=cyaw, g=g_new, f=f_cand, v=lat_v,
                     steer=lat_s, parent=base + parent_lane)
-        new_pool = {k: gather_along(
-            merged_f if k == "f" else torch.cat(
-                [pool[k], cand[k].expand(B, FI)], dim=1), keep)
-            for k in pool}
+        new_pool = _gather_fields(
+            {k: merged_f if k == "f" else torch.cat(
+                [pool[k], cand[k].expand(B, FI)], dim=1) for k in pool},
+            keep)
 
         # accepted candidates (kept, and from the candidate part) claim
         # best_g; in place, with a finished scenario claiming nothing
@@ -318,29 +334,19 @@ def _plan(grid, cfg, start, goal, n_shot_samples, with_arena):
         done = done | new_done
 
     # ---- path reconstruction (retrievePath, kino_astar.h:273-292)
-    node = shot_node
-    chain, valid = [], []
-    for _ in range(R + 1):
-        nid = node.clamp(min=0)
-        ok = node >= 0
-        chain.append(nid)
-        valid.append(ok)
-        node = torch.where(ok, gather_along(arena_parent, nid[:, None])[:, 0],
-                           -1)
-    rev_ids = torch.stack(chain, dim=1)                        # [B, R+1]
-    rev_valid = torch.stack(valid, dim=1)
+    rev_ids, rev_valid = walk_parents(arena_parent, shot_node, R + 1)
     # reverse into start -> shot order, left-aligned
     n_valid = rev_valid.sum(dim=1, dtype=i32)
     idx = n_valid[:, None] - 1 - torch.arange(R + 1, device=dev, dtype=i32)
     tree_mask = idx >= 0
     ids = gather_along(rev_ids, idx.clamp(0, R))
-    tree_states = torch.stack(
-        [torch.where(tree_mask, gather_along(a, ids), 0.0)
-         for a in (arena_x, arena_y, arena_yaw)], dim=-1)      # [B, R+1, 3]
-
+    arena_xyz = (arena_x, arena_y, arena_yaw)
+    tree_states = torch.where(
+        tree_mask[..., None],
+        torch.stack(gather_along_many(arena_xyz, ids), dim=-1),
+        0.0)                                                   # [B, R+1, 3]
     shot_state = torch.stack(
-        [gather_along(a, shot_node[:, None])[:, 0]
-         for a in (arena_x, arena_y, arena_yaw)], dim=-1)      # [B, 3]
+        gather_along_many(arena_xyz, shot_node[:, None]), dim=-1)[:, 0]
     L = dubins.distance(shot_state, goal, rho)[:, None]
     ss = torch.arange(1, S + 1, device=dev, dtype=dtype) \
         * cfg.collision_interval

@@ -31,15 +31,16 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One `csrc/<name>.cu` and the shared library built from it.
+    """One `csrc/<name>.cu` (or the CUDA source at `source`) and the shared
+    library built from it.
 
     `declare(lib)` sets the argument and result types of the library's C
     functions once it is loaded.  `build_log` keeps the compiler's output
     (with `-Xptxas -v` register counts) of the build this process ran."""
 
-    def __init__(self, name: str, declare):
+    def __init__(self, name: str, declare, source: str | None = None):
         self.name = name
-        self.source = os.path.join(_PKG, "csrc", f"{name}.cu")
+        self.source = source or os.path.join(_PKG, "csrc", f"{name}.cu")
         self.build_log = ""
         self._declare = declare
         self._lock = threading.Lock()

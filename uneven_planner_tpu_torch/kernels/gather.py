@@ -4,6 +4,11 @@
     gather_rows(table, idx)      out[i, :] = table[clip(idx[i], 0, N-1), :]
     gather_along(x, idx, axis)   out[b, k] = x[b, clip(idx[b, k], 0, N-1)]
                                  (axis 1), out[i, j] = x[idx[i, j], j] (axis 0)
+    gather_along_many(xs, idx)   [gather_along(x, idx) for x in xs], one
+                                 launch for up to 8 arrays of one shape
+    walk_parents(parent, start, steps)
+                                 the search's walk back through its parent
+                                 arena, one launch for all the steps
 
 Indices are clipped as `jnp.take(..., mode="clip")` clips them (PyTorch
 would wrap a negative index; the twins clamp first).  A wrapper runs its
@@ -28,7 +33,8 @@ import torch
 
 from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 
-launches = {"gather_rows": 0, "gather_along": 0}
+launches = {"gather_rows": 0, "gather_along": 0,
+            "gather_along_many": 0, "walk_parents": 0}
 
 _IDX_TYPES = (torch.int32, torch.int64)
 # the largest byte table K3 copies into shared memory (kSmemTable of
@@ -37,6 +43,10 @@ SMEM_TABLE_BYTES = 48 * 1024
 # element widths, in bytes, each kernel is compiled for
 ROWS_ELEMENT_BYTES = (1, 4, 8)
 ALONG_ELEMENT_BYTES = (4, 8)
+# arrays one K4 launch reads at one index (kMaxArrays), and the indices a
+# thread takes (kAlongVec)
+MAX_ARRAYS = 8
+ALONG_VEC = 4
 
 
 def reset_launches():
@@ -50,8 +60,11 @@ def _declare(lib):
     lib.gather_rows.restype = i
     lib.gather_rows_bytes_smem.argtypes = [p, p, p, ll, i, ll, i, p]
     lib.gather_rows_bytes_smem.restype = i
-    lib.gather_along.argtypes = [p, p, p, ll, i, ll, ll, ll, ll, i, i, p]
+    lib.gather_along.argtypes = [p, p, i, p, ll, ll, ll, ll, ll, ll, i, i,
+                                 i, i, p]
     lib.gather_along.restype = i
+    lib.walk_parents.argtypes = [p, p, p, p, i, ll, i, p]
+    lib.walk_parents.restype = i
     lib.gather_error_string.argtypes = [i]
     lib.gather_error_string.restype = ctypes.c_char_p
 
@@ -157,7 +170,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K4 gather_along
+# K4 gather_along, gather_along_many, walk_parents
 # ---------------------------------------------------------------------------
 
 def gather_along_twin(x: torch.Tensor, idx: torch.Tensor,
@@ -166,41 +179,153 @@ def gather_along_twin(x: torch.Tensor, idx: torch.Tensor,
     return torch.gather(x, axis, idx.long().clamp(0, x.shape[axis] - 1))
 
 
+def gather_along_many_twin(xs, idx: torch.Tensor, axis: int = 1) -> list:
+    """Plain PyTorch version of `gather_along_many`: one
+    `gather_along_twin` per array."""
+    return [gather_along_twin(x, idx, axis) for x in xs]
+
+
+def _check_along(xs, idx, axis, name):
+    """Shape, device, index and element-width checks shared by K4's
+    wrappers; raises on what the kernel does not take."""
+    if axis not in (0, 1):
+        raise ValueError(f"{name}: axis must be 0 or 1, got {axis}")
+    if not 1 <= len(xs) <= MAX_ARRAYS:
+        raise ValueError(f"{name}: 1 to {MAX_ARRAYS} arrays, got {len(xs)}")
+    x = xs[0]
+    if x.dim() != 2 or idx.dim() != 2 \
+            or x.shape[1 - axis] != idx.shape[1 - axis]:
+        raise ValueError(f"{name}: x and idx must be 2-D and agree on "
+                         f"the other axis, got {tuple(x.shape)}, "
+                         f"{tuple(idx.shape)}, axis {axis}")
+    if x.shape[axis] == 0:
+        raise ValueError(f"{name}: nothing to gather from")
+    for y in xs[1:]:
+        if y.shape != x.shape or y.device != x.device:
+            raise ValueError(f"{name}: the arrays must share shape and "
+                             "device")
+        if y.element_size() != x.element_size():
+            raise TypeError(f"{name}: the arrays must share one element "
+                            f"width, got {x.dtype} and {y.dtype}")
+    _check_index(idx, x, name)
+
+
+def _launch_along(xs, idx, axis, name, *, off32=None, vec=None):
+    """K4 on CUDA tensors: one launch reads every array of `xs` at `idx`.
+    The offset width and the vector path come from the sizes and the
+    alignment unless named (the card tests name each instantiation)."""
+    x = xs[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    check_element_size(x, ALONG_ELEMENT_BYTES, name)
+    if not all(y.is_contiguous() for y in xs) or not idx.is_contiguous():
+        raise ValueError(f"{name}: the arrays and idx must be contiguous")
+    rows, cols = idx.shape
+    outs = [torch.empty((rows, cols), dtype=y.dtype, device=y.device)
+            for y in xs]
+    if idx.numel() == 0:
+        return outs
+    if off32 is None:   # every element of the arrays and idx fits an int
+        off32 = max(x.numel(), idx.numel()) < 2 ** 31
+    if vec is None:
+        vec = cols % ALONG_VEC == 0 and all(
+            t.data_ptr() % 16 == 0 for t in [idx, *outs])
+    N = x.shape[axis]
+    strides = (x.shape[1], 0, 1) if axis == 1 else (0, 1, x.shape[1])
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.gather_along(ptrs(xs), ptrs(outs), len(xs), idx.data_ptr(),
+                           rows, cols, N, *strides, x.element_size(),
+                           int(idx.dtype == torch.int64), int(off32),
+                           int(vec), stream)
+    _raise_on(lib, err, name)
+    launches[name] += 1
+    return outs
+
+
 def gather_along(x: torch.Tensor, idx: torch.Tensor,
                  axis: int = 1) -> torch.Tensor:
     """K4: `take_along_axis(x, idx, axis)` on 2-D tensors with clipped
     indices.  axis 1: x [B, N], idx [B, K] -> [B, K]; axis 0: x [N, C],
     idx [K, C] -> [K, C]."""
-    if axis not in (0, 1):
-        raise ValueError(f"gather_along: axis must be 0 or 1, got {axis}")
-    if x.dim() != 2 or idx.dim() != 2 \
-            or x.shape[1 - axis] != idx.shape[1 - axis]:
-        raise ValueError("gather_along: x and idx must be 2-D and agree on "
-                         f"the other axis, got {tuple(x.shape)}, "
-                         f"{tuple(idx.shape)}, axis {axis}")
-    if x.shape[axis] == 0:
-        raise ValueError("gather_along: nothing to gather from")
-    _check_index(idx, x, "gather_along")
+    _check_along([x], idx, axis, "gather_along")
     if x.device.type == "cpu":
         return gather_along_twin(x, idx, axis)
-    if x.device.type != "cuda":
-        raise ValueError(f"gather_along: no kernel for device {x.device}")
-    check_element_size(x, ALONG_ELEMENT_BYTES, "gather_along")
-    if not x.is_contiguous() or not idx.is_contiguous():
-        raise ValueError("gather_along: x and idx must be contiguous")
-    rows, cols = idx.shape
-    if cols >= 2 ** 31:
-        raise ValueError("gather_along: at most 2^31-1 columns")
-    out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    N = x.shape[axis]
-    strides = (x.shape[1], 0, 1) if axis == 1 else (0, 1, x.shape[1])
+    return _launch_along([x], idx, axis, "gather_along")[0]
+
+
+def gather_along_many(xs, idx: torch.Tensor, axis: int = 1) -> list:
+    """K4 on 1 to MAX_ARRAYS arrays of one shape and one element width
+    (float32 and int32 mix, as float64 and int64 do: the kernel copies
+    words), all read at `idx` in one launch that loads the index once:
+    `[gather_along(x, idx, axis) for x in xs]`."""
+    xs = list(xs)
+    _check_along(xs, idx, axis, "gather_along_many")
+    if xs[0].device.type == "cpu":
+        return gather_along_many_twin(xs, idx, axis)
+    return _launch_along(xs, idx, axis, "gather_along_many")
+
+
+def walk_parents_twin(parent: torch.Tensor, start: torch.Tensor,
+                      steps: int):
+    """Plain PyTorch version of `walk_parents`: the walk as a loop of
+    `steps` gathers."""
+    node = start
+    chain, valid = [], []
+    for _ in range(steps):
+        nid = node.clamp(min=0)
+        ok = node >= 0
+        chain.append(nid)
+        valid.append(ok)
+        node = torch.where(ok, gather_along_twin(parent, nid[:, None])[:, 0],
+                           -1)
+    if not chain:
+        empty = lambda dt: torch.empty((start.shape[0], 0), dtype=dt,
+                                       device=start.device)
+        return empty(torch.int32), empty(torch.bool)
+    return torch.stack(chain, dim=1), torch.stack(valid, dim=1)
+
+
+def walk_parents(parent: torch.Tensor, start: torch.Tensor, steps: int):
+    """K4's walk back through a parent arena (retrievePath,
+    kino_astar.h:273-292, for B scenarios at once): parent [B, A] int32
+    (arena id of each node's parent, -1 at a root), start [B] int32 ->
+    (rev_ids [B, steps] int32, rev_valid [B, steps] bool).  Step s holds
+    max(node, 0) and node >= 0, then node = parent[b, clip(node)] while
+    node >= 0, else -1."""
+    if parent.dim() != 2 or start.shape != (parent.shape[0],):
+        raise ValueError("walk_parents: parent must be [B, A] and start "
+                         f"[B], got {tuple(parent.shape)}, "
+                         f"{tuple(start.shape)}")
+    if parent.dtype != torch.int32 or start.dtype != torch.int32:
+        raise TypeError("walk_parents: parent and start must be int32, got "
+                        f"{parent.dtype}, {start.dtype}")
+    if parent.shape[1] == 0 or steps < 0:
+        raise ValueError("walk_parents: an empty arena or negative steps")
+    if start.device != parent.device:
+        raise ValueError(f"walk_parents: start on {start.device}, parent "
+                         f"on {parent.device}")
+    if parent.device.type == "cpu":
+        return walk_parents_twin(parent, start, steps)
+    if parent.device.type != "cuda":
+        raise ValueError(f"walk_parents: no kernel for device "
+                         f"{parent.device}")
+    if not parent.is_contiguous() or not start.is_contiguous():
+        raise ValueError("walk_parents: parent and start must be "
+                         "contiguous")
+    B = parent.shape[0]
+    rev_ids = torch.empty((B, steps), dtype=torch.int32,
+                          device=parent.device)
+    rev_valid = torch.empty((B, steps), dtype=torch.bool,
+                            device=parent.device)
+    if B == 0 or steps == 0:
+        return rev_ids, rev_valid
     lib = LIBRARY.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gather_along(x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                           rows, cols, N, *strides, x.element_size(),
-                           int(idx.dtype == torch.int64), stream)
-    _raise_on(lib, err, "gather_along")
-    launches["gather_along"] += 1
-    return out
+    stream = torch.cuda.current_stream(parent.device).cuda_stream
+    err = lib.walk_parents(parent.data_ptr(), start.data_ptr(),
+                           rev_ids.data_ptr(), rev_valid.data_ptr(), B,
+                           parent.shape[1], steps, stream)
+    _raise_on(lib, err, "walk_parents")
+    launches["walk_parents"] += 1
+    return rev_ids, rev_valid

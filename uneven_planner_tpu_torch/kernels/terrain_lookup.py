@@ -30,16 +30,20 @@ def reset_launches():
 
 
 def index_bits(table_words16: int) -> int:
-    """Width of K1's index math for a table of `table_words16` 16-byte
-    words: 32 when every word is addressable with a 32-bit int (every map
-    the planner builds: the hill's full table is 10,240,000 words), 64
-    otherwise."""
+    """Width of K1's and K2's index math for a table of `table_words16`
+    16-byte words: 32 when every word is addressable with a 32-bit int
+    (every map the planner builds: the hill's full f16 table is 10,240,000
+    words, its pair table 5,120,000), 64 otherwise."""
     return 32 if table_words16 < 2 ** 31 else 64
 
 
 LAYOUTS = ("thread", "quad")
-# threads of a block of K1 (kK1Block of csrc/terrain_lookup.cu)
+# threads of a block of K1 and K2 (kK1Block, kK2Block of
+# csrc/terrain_lookup.cu)
 _BLOCK = 128
+# K2 takes a quad of lanes per sample while the quads fit in this many
+# 128-thread blocks per SM (half a wave at 2,048 threads an SM)
+_PAIR_QUAD_BLOCKS_PER_SM = 8
 
 
 def packed16_layout(M: int, sms: int) -> str:
@@ -51,12 +55,23 @@ def packed16_layout(M: int, sms: int) -> str:
     return "thread" if M > sms * _BLOCK else "quad"
 
 
+def pair_layout(M: int, sms: int) -> str:
+    """K2's layout for M lookups on a card of `sms` SMs: a quad of lanes
+    per sample while the quads fit in half a wave of the card (the
+    pipeline's init_scaling, M = 5,760), a thread per sample above (the
+    planning path's, M = 43,520, and up).  On the card the quad wins up to
+    M = 21,760 and the thread from 43,520 (`chip_studies/k2_ablation.py`,
+    `PERF.md` §6)."""
+    quads_fit = 4 * M <= sms * _PAIR_QUAD_BLOCKS_PER_SM * _BLOCK
+    return "quad" if quads_fit else "thread"
+
+
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geom = [i, i, i] + [f] * 11
     lib.terrain_tv_packed16.argtypes = [p] * 6 + [i] + geom + [i, i, i, i, p]
     lib.terrain_tv_packed16.restype = i
-    lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + geom + [i, p]
+    lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + geom + [i, i, i, p]
     lib.terrain_tv_pair.restype = i
     lib.terrain_lookup_error_string.argtypes = [i]
     lib.terrain_lookup_error_string.restype = ctypes.c_char_p
@@ -150,8 +165,21 @@ def _launch_packed16(table, geom, px, py, yaw, exact: bool, want_jac: bool,
 
 def terrain_tv_pair(table, geom, px, py, yaw, want_jac: bool):
     """K2: tv [7, M] (and J [7, 3, M]) from the yaw-pair table
-    [Ncells, 8] float32."""
+    [Ncells, 8] float32.  Index width and layout are picked as K1's
+    (`index_bits`, `pair_layout`)."""
     _check_poses(px, py, yaw)
+    return _launch_pair(
+        table, geom, px, py, yaw, want_jac,
+        layout=pair_layout(px.numel(), _sm_count(px.device)),
+        idx32=index_bits(table.numel() // 4) == 32)
+
+
+def _launch_pair(table, geom, px, py, yaw, want_jac: bool, *, layout: str,
+                 idx32: bool):
+    """K2 in the named layout and index width (the card tests name each)."""
+    _check_poses(px, py, yaw)
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
     nx, ny, nyaw = geom[:3]
     _check_table(table, nx * ny * nyaw, torch.float32, px.device)
     M = px.numel()
@@ -163,7 +191,7 @@ def terrain_tv_pair(table, geom, px, py, yaw, want_jac: bool):
     err = lib.terrain_tv_pair(
         px.data_ptr(), py.data_ptr(), yaw.data_ptr(), table.data_ptr(),
         tv.data_ptr(), jac.data_ptr() if want_jac else None, M, *geom,
-        int(want_jac), stream)
+        int(want_jac), int(idx32), int(layout == "quad"), stream)
     _raise_on(lib, err, "terrain_tv_pair")
     launches["terrain_tv_pair"] += 1
     return tv, jac

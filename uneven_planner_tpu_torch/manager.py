@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from uneven_planner_tpu_torch.config import ManagerConfig
-from uneven_planner_tpu_torch.kernels.gather import gather_along
+from uneven_planner_tpu_torch.kernels.gather import (gather_along,
+                                                     gather_along_many)
 from uneven_planner_tpu_torch.solver.alm import (Boundary, ProblemShape,
                                                  logC2, pack)
 from uneven_planner_tpu_torch.terrain.grid import so2_diff
@@ -177,8 +178,8 @@ def init_guess_fixed_device(path: torch.Tensor, mask: torch.Tensor,
     rows = gather_along(order, torch.minimum(
         torch.arange(L, device=dev).expand(B, L), n[:, None] - 1)
         .contiguous())
-    px, py, pyaw = (gather_along(path[..., k].contiguous(), rows)
-                    for k in range(3))
+    px, py, pyaw = gather_along_many(
+        [path[..., k].contiguous() for k in range(3)], rows)
 
     # unwrap yaw along the path (smooth yaw, plan_manager.cpp:62-77)
     dyaw = so2_diff(pyaw[:, 1:], pyaw[:, :-1])

@@ -7,18 +7,21 @@ cells hold the RXS2 value (z, sigma, zb0, zb1) (uneven_map.h:46).  The
 solver reads it through two gather tables, stored row-major with 32-byte
 rows so that one lookup corner is one DRAM sector on the GPU:
 
-  data_pair      [Ncells, 8] data dtype: cell (x, y, w) holds the RXS2 value
-                 at yaw w and at yaw (w+1) mod Nyaw; the transpose of the JAX
-                 package's channel-major `data_pair`, word for word.
+  data_pair      [Ncells, 8] data dtype: the row of cell (x, y, w) holds the
+                 RXS2 value at yaw w and at yaw (w+1) mod Nyaw; the JAX
+                 package's channel-major `data_pair`, word for word,
+                 transposed and reordered with x fastest.
   data_packed16  [2*Ncells, 8] int32: words 0-5 of the row of cell
                  (x, y, w) pack {sigma, zb0, zb1} x {y, y+1} as f16 pairs
                  (value at yaw w in the high half, at w+1 in the low half);
                  rows Ncells + i hold the f16 residuals; words 6-7 are zero
-                 padding.  Cells are ordered with x fastest (row
-                 (y * Nyaw + w) * Nx + x, `packed16_row`), so the two x
-                 corners of a lookup are neighbouring rows.  Words 0-5 are
-                 the JAX package's `data_packed16` bits, transposed and
-                 reordered so (`packed16_x_fastest`).
+                 padding.  Words 0-5 are the JAX package's `data_packed16`
+                 bits, transposed and reordered with x fastest.
+
+Both tables order their cells with x fastest: cell (x, y, w) is row
+(y * Nyaw + w) * Nx + x (`cell_row`) of its half, so the two x corners of a
+lookup are neighbouring rows; `x_fastest` reorders a table from the JAX
+package's (x, y, w) order.
 
 Each lookup has a hand-written CUDA kernel (`csrc/terrain_lookup.cu`) and a
 plain PyTorch twin here that computes the same pair (tv, J): the 7 terrain
@@ -136,11 +139,11 @@ def from_buffers(data: torch.Tensor, min_cnormal: float, max_rho: float,
 
 def with_pair_table(grid: TerrainGrid) -> TerrainGrid:
     """Attach the yaw-pair table [Ncells, 8]: (z, sigma, zb0, zb1) at yaw w,
-    then at (w+1) mod Nyaw (grid.py:453-458, row-major)."""
+    then at (w+1) mod Nyaw (grid.py:453-458, row-major, cells x fastest)."""
     nx, ny, nyaw = grid.voxel_num
     pair = torch.cat([grid.data, torch.roll(grid.data, -1, dims=2)], dim=-1)
-    return grid.replace(data_pair=pair.reshape(nx * ny * nyaw, 8)
-                        .contiguous())
+    return grid.replace(data_pair=x_fastest(
+        pair.reshape(nx * ny * nyaw, 8), grid.voxel_num))
 
 
 def _f16_bits(h: torch.Tensor) -> torch.Tensor:
@@ -178,24 +181,25 @@ def with_packed_f16(grid: TerrainGrid) -> TerrainGrid:
     packed = torch.zeros((2 * ncells, 8), dtype=torch.int32, device=d.device)
     packed[:ncells, :6] = words(his)
     packed[ncells:, :6] = words(los)
-    return grid.replace(
-        data_packed16=packed16_x_fastest(packed, grid.voxel_num))
+    return grid.replace(data_packed16=x_fastest(packed, grid.voxel_num))
 
 
-def packed16_x_fastest(rows, voxel_num):
-    """Rows of a packed table [2*Ncells, k] (tensor or numpy array) in cell
-    order (x, y, w), hi half then residual half, reordered with x fastest:
-    the cell (x, y, w) moves to row `packed16_row(x, y, w)` of its half."""
+def x_fastest(rows, voxel_num):
+    """Rows of a table [h*Ncells, k] (tensor or numpy array; h halves of
+    Ncells rows each, h = 2 for the packed table's hi and residual
+    halves) in cell order (x, y, w), reordered with x fastest: the cell
+    (x, y, w) moves to row `cell_row(x, y, w)` of its half."""
     nx, ny, nyaw = voxel_num
     k = rows.shape[-1]
-    split = rows.reshape(2, nx, ny, nyaw, k)
+    split = rows.reshape(-1, nx, ny, nyaw, k)
     if isinstance(rows, torch.Tensor):
         return split.permute(0, 2, 3, 1, 4).reshape(-1, k).contiguous()
     return split.transpose(0, 2, 3, 1, 4).reshape(-1, k).copy()
 
 
-def packed16_row(ix, iy, iw, voxel_num):
-    """Row of cell (ix, iy, iw) in the hi half of `data_packed16`."""
+def cell_row(ix, iy, iw, voxel_num):
+    """Row of cell (ix, iy, iw) in `data_pair` and in the hi half of
+    `data_packed16`."""
     nx, ny, nyaw = voxel_num
     return (iy * nyaw + iw) * nx + ix
 
@@ -340,8 +344,8 @@ def packed16_tv_jac(grid: TerrainGrid, px, py, yaw, exact: bool,
     k = _cell(grid, px, py, yaw, low_y_rule=True)
     M = px.shape[0]
     rows = torch.stack([
-        packed16_row(k["ix0"], k["iy0"], k["iw"], grid.voxel_num),
-        packed16_row(k["ix1"], k["iy0"], k["iw"], grid.voxel_num)], 1)
+        cell_row(k["ix0"], k["iy0"], k["iw"], grid.voxel_num),
+        cell_row(k["ix1"], k["iy0"], k["iw"], grid.voxel_num)], 1)
 
     def gather(r):                                      # -> 2 x [M, 2, 6]
         r = r.reshape(-1).clamp(0, 2 * ncells - 1)
@@ -377,8 +381,8 @@ def pair_tv_jac(grid: TerrainGrid, px, py, yaw, want_jac: bool):
     k = _cell(grid, px, py, yaw, low_y_rule=False)
     M = px.shape[0]
     x0, x1, y0, y1, w = k["ix0"], k["ix1"], k["iy0"], k["iy1"], k["iw"]
-    rows = torch.stack([(x0 * ny + y0) * nyaw + w, (x0 * ny + y1) * nyaw + w,
-                        (x1 * ny + y0) * nyaw + w, (x1 * ny + y1) * nyaw + w],
+    row = lambda x, y: cell_row(x, y, w, grid.voxel_num)
+    rows = torch.stack([row(x0, y0), row(x0, y1), row(x1, y0), row(x1, y1)],
                        1).reshape(-1).clamp(0, nx * ny * nyaw - 1)
     v = grid.data_pair.index_select(0, rows).reshape(M, 4, 8).to(px.dtype)
     a, b = v[..., 1:4], v[..., 5:8]                  # (sig, zb0, zb1) at w, w+1
