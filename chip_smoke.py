@@ -63,10 +63,19 @@ Phases, each of which must pass (exit code 1 otherwise):
  13. pipeline the plan -> track path at full width: plan_track_batch on 64
               scenarios x 500 ticks; scenarios/s, planned-and-converged
               share, tracking error; then search, solve and tracking once
-              more, each alone, for the split of the time.
+              more, each alone, for the split of the time;
+ 14. build    the map builder at full width: a hill cloud (the surface
+              triangulated at 1 cm, 300,000 samples, 40 trunks) written as
+              a PCD, read back through io.load_scene_cloud, built twice with
+              build.construct_map on the hill map (200 x 200 x 64 cells, 2
+              iterations) with K3's launches counted; the map against the
+              surface, the fits against a brute-force oracle, the three modes
+              on a 4 x 4 m crop, the card against the CPU on a 1.6 x 1.6 m
+              crop, K3 at the build's two reads, 256 plans on the built
+              map and its npz cache.
 Prints the kernels' JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package beside
-it, it exits 2 and prints no result.  `--phases` names phases 3-13 by their
+it, it exits 2 and prints no result.  `--phases` names phases 3-14 by their
 short names (PHASES below; 6 runs with 5 and the plan's profile with 8): it
 runs the device and build steps and those phases, prints their lines and
 `# total`, and ends with {"partial": [...]} instead of the kernels' line
@@ -152,10 +161,38 @@ MAX_FULL_VS_CONDENSED_ERR = 0.002
 # may stop an iteration apart at its 1e-6 test
 TRACK_F64_STATE_TOL = 1e-6
 TRACK_F64_CMD_TOL = 1e-5
+# the map builder's phase: the hill surface (lifted BUILD_LIFT m so the
+# reference's crop box, z >= -0.01, keeps every point) triangulated at 1 cm
+# and sampled BUILD_SAMPLES times, as the reference's to_pcl.py samples a
+# mesh, plus BUILD_TRUNKS trunks of 600 points in TRUNK_BOX ((x0, x1),
+# (y0, y1)), where no planning scenario goes
+BUILD_MESH_STEP = 0.01
+BUILD_LIFT = 0.1
+BUILD_SAMPLES = 300_000
+BUILD_TRUNKS = 40
+TRUNK_BOX = ((2.5, 4.5), (-4.5, -2.5))
+# built z against the surface at each cell's probe point (metres)
+MAX_Z_ERR_MEDIAN = 0.002
+MAX_Z_ERR_P99 = 0.03
+# sigma = 3 lambda_min / trace is ~0 on a noise-free surface, and exactly 0
+# where an ellipsoid holds two points (a rank-1 covariance), where the
+# float32 closed form of both packages (build.py:351-370) puts the two zero
+# eigenvalues up to ~sqrt(eps_f32) lambda_max to either side of 0: sigma
+# down to ~-3 sqrt(eps_f32) = -7.3e-4 (the JAX package's f32 eigensolver
+# gives -1.5e-7 against a trace of 1.6e-3 on such a two-point covariance,
+# sigma -2.8e-4)
+SIGMA_ROUNDING = 1e-3
+# fits against the brute-force oracle (atol and rtol, tests/test_build.py);
+# the modes against each other (tests/test_build.py:158, :164); the card
+# against the CPU, every cell and the median (float32, summation orders)
+TOL_BUILD_ORACLE = 5e-3
+TOL_BUILD_MODES = 2e-3
+TOL_BUILD_CARD_CPU = 2e-3
+TOL_BUILD_CARD_CPU_MEDIAN = 1e-6
 # phase names for --phases, in the order a full run takes them
 PHASES = ("terrain", "gather", "tanh", "admm", "small-reference",
           "headline", "plan-reference", "plan", "track-reference",
-          "track-full-ref", "mpc", "mpc-full", "pipeline")
+          "track-full-ref", "mpc", "mpc-full", "pipeline", "build")
 
 
 def log(*a):
@@ -2112,6 +2149,334 @@ def phase_pipeline(device, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the map builder: point cloud -> SE(2) terrain field -> plans
+# ---------------------------------------------------------------------------
+
+def hill_cloud_mesh(step=BUILD_MESH_STEP, half=5.6, lift=BUILD_LIFT):
+    """The hill surface (`hill_height` + lift) triangulated on a square
+    grid of `step` spacing over [-half, half]^2: (verts, faces)."""
+    import numpy as np
+    from uneven_planner_tpu_torch.terrain.synthetic import hill_height
+    xs = np.arange(-half, half + 1e-9, step)
+    n = len(xs)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    verts = np.stack([X, Y, hill_height(X, Y) + lift], -1).reshape(-1, 3)
+    i = (np.arange(n - 1)[:, None] * n + np.arange(n - 1)[None, :]).ravel()
+    faces = np.concatenate([np.stack([i, i + n, i + 1], 1),
+                            np.stack([i + 1, i + n, i + n + 1], 1)])
+    return verts, faces
+
+
+def build_cloud(seed=0):
+    """The reference's to_pcl flow on the hill: BUILD_SAMPLES surface
+    samples of the triangulated hill plus BUILD_TRUNKS vertical trunks of
+    600 points (tests/test_build.py:117-120) standing in TRUNK_BOX.
+    Returns (points [N, 3], trunk centres [T, 2])."""
+    import numpy as np
+    from uneven_planner_tpu_torch.terrain import mesh
+    from uneven_planner_tpu_torch.terrain.synthetic import hill_height
+    pts = mesh.sample_surface(*hill_cloud_mesh(), BUILD_SAMPLES, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    (x0, x1), (y0, y1) = TRUNK_BOX
+    centres = np.stack([rng.uniform(x0, x1, BUILD_TRUNKS),
+                        rng.uniform(y0, y1, BUILD_TRUNKS)], 1)
+    trunks = [np.stack([cx + rng.normal(0, 0.03, 600),
+                        cy + rng.normal(0, 0.03, 600),
+                        hill_height(cx, cy) + BUILD_LIFT
+                        + rng.uniform(0.0, 3.0, 600)], 1)
+              for cx, cy in centres]
+    return np.concatenate([pts] + trunks), centres
+
+
+def _reference_fit(cell_pos, prev, points, cfg):
+    """Direct numpy port of the reference per-cell fit semantics
+    (uneven_map.cpp:317-398 + filter :5-43), brute force over the full
+    cloud: the oracle of the bucketed fits (tests/test_build.py:33-63)."""
+    import numpy as np
+    zb = prev[2:4]
+    c = np.sqrt(max(1.0 - zb @ zb, 1e-12))
+    yaw = cell_pos[2]
+    xyaw = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+    zb3 = np.array([zb[0], zb[1], c])
+    yb = np.cross(zb3, xyaw)
+    yb /= np.linalg.norm(yb)
+    xb = np.cross(yb, zb3)
+    RT = np.stack([xb, yb, zb3])
+    world_xy = cell_pos[:2] + xb[:2] * cfg.probe_offset
+    d2 = np.sum((points[:, :2] - world_xy) ** 2, axis=1)
+    z0 = points[np.argmin(d2), 2]
+    world_pos = np.array([world_xy[0], world_xy[1], z0])
+    rel = (points - world_pos) @ RT.T
+    inv_ell = np.array([1 / cfg.ellipsoid_x, 1 / cfg.ellipsoid_y,
+                        1 / cfg.ellipsoid_z])
+    member = np.sum((rel * inv_ell) ** 2, axis=1) < 1.0
+    sel = points[member]
+    if len(sel) == 0:
+        return np.array([world_pos[2], 0.0, 0.0, 0.0])
+    mean = sel.mean(axis=0)
+    cov = (sel - mean).T @ (sel - mean) / len(sel)
+    w, V = np.linalg.eigh(cov)
+    n = V[:, 0]
+    if n[2] < 0:
+        n = -n
+    sigma = 3 * w[0] / w.sum()
+    return np.array([mean[2], sigma, n[0], n[1]])
+
+
+def _build_k3_reads(points, cfg, device):
+    """The two K3 reads of the first dispatch of a full build, captured by
+    running the build until its second read: [(table, idx), ...] for the
+    bucket rows and the cloud rows."""
+    from uneven_planner_tpu_torch.kernels import gather
+    from uneven_planner_tpu_torch.terrain import build
+
+    class Enough(Exception):
+        pass
+
+    seen = []
+
+    def record(table, idx):
+        seen.append((table, idx.clone()))
+        if len(seen) == 2:
+            raise Enough
+        return gather.gather_rows(table, idx)
+
+    build.gather_rows = record
+    try:
+        build.construct_map(points, cfg, device=device)
+    except Enough:
+        pass
+    finally:
+        build.gather_rows = gather.gather_rows
+    return seen
+
+
+def phase_map_build(device, smi):
+    """The map builder at full width on a hill cloud, its checks, K3 at the
+    build's two shapes, planning on the built map and the npz cache."""
+    import tempfile
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    from uneven_planner_tpu_torch import api
+    from uneven_planner_tpu_torch.config import MapConfig, scene_config
+    from uneven_planner_tpu_torch.kernels import gather
+    from uneven_planner_tpu_torch.terrain import build, io, mesh
+    from uneven_planner_tpu_torch.terrain import grid as tgrid
+    from uneven_planner_tpu_torch.terrain.synthetic import hill_height
+    fails = []
+    t0 = time.perf_counter()
+    raw, centres = build_cloud()
+    with tempfile.TemporaryDirectory() as tmp:
+        maps = os.path.join(tmp, "maps")
+        os.makedirs(maps)
+        mesh.save_pcd(os.path.join(maps, "hillcloud.pcd"), raw)
+        points = io.load_scene_cloud("hillcloud", maps)
+        cloud_s = time.perf_counter() - t0
+
+        cfg = scene_config("hill").map
+        b3 = build.build_buckets3d(points, cfg, device="cpu")
+        nx, ny, nyaw = cfg.voxel_num
+        fits = nx * ny * nyaw * cfg.iter_num
+        builds, grid = [], None
+        for k in range(2):
+            if grid is not None:
+                del grid
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gather.reset_launches()
+            t = {}
+            t1 = time.perf_counter()
+            grid = build.construct_map(points, cfg, device=device,
+                                       timings=t)
+            occ_share = float(grid.occ.float().mean())      # a host read
+            wall = time.perf_counter() - t1
+            builds.append(dict(
+                wall_s=wall, host_s=t["host_s"], device_s=t["device_s"],
+                fits_per_s=fits / wall,
+                k3_launches=gather.launches["gather_rows"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30))
+        data = grid.data
+
+        # one more build under the profiler: device time of the sweep by
+        # kernel, and the device's busy share of the sweep
+        from torch.profiler import ProfilerActivity, profile
+        t = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            build.construct_map(points, cfg, device=device, timings=t)
+        total, rows = device_time_by_kernel(prof)
+        k3 = [(u, c) for u, k, c in rows if "gather_rows_kernel" in k]
+        sweep_profile = dict(
+            device_s_profiled=t["device_s"], device_ms=total / 1e3,
+            device_busy_share=total / 1e6 / t["device_s"],
+            device_calls=sum(c for _, _, c in rows),
+            k3_ms=sum(u for u, _ in k3) / 1e3, k3_calls=sum(c for _, c in k3),
+            top=[dict(kernel=k[:80], device_ms=u / 1e3, calls=c)
+                 for u, k, c in rows[:8]])
+        del prof
+
+        # z against the surface at each cell's probe point, away from the
+        # trunks
+        ox, oy, oyaw = cfg.map_origin
+        cx = (np.arange(nx) + 0.5) * cfg.xy_resolution + ox
+        cy = (np.arange(ny) + 0.5) * cfg.xy_resolution + oy
+        cw = (np.arange(nyaw) + 0.5) * cfg.yaw_resolution + oyaw
+        X, Y, W = np.meshgrid(cx, cy, cw, indexing="ij")
+        PX = X + cfg.probe_offset * np.cos(W)
+        PY = Y + cfg.probe_offset * np.sin(W)
+        (x0, x1), (y0, y1) = TRUNK_BOX
+        away = ~((PX > x0 - 0.5) & (PX < x1 + 0.5) & (PY > y0 - 0.5)
+                 & (PY < y1 + 0.5))
+        host = data.cpu().numpy()
+        dz = np.abs(host[..., 0] - (hill_height(PX, PY) + BUILD_LIFT))[away]
+        sig = host[..., 1]
+        out = dict(
+            card=smi, points=len(points), raw_points=len(raw),
+            trunks=BUILD_TRUNKS, bucket_capacity_K=int(b3.table.shape[1]),
+            buckets=list(b3.nb), cells=[nx, ny, nyaw],
+            iterations=cfg.iter_num, fits=fits, cloud_s=cloud_s,
+            builds=builds, sweep_profile=sweep_profile,
+            finite=bool(np.isfinite(host).all()),
+            sigma_min=float(sig.min()), sigma_max=float(sig.max()),
+            sigma_below_minus_1e6_cells=int((sig < -1e-6).sum()),
+            z_err_median_m=float(np.median(dz)),
+            z_err_p99_m=float(np.percentile(dz, 99)),
+            z_err_max_m=float(dz.max()), occupancy_share=occ_share)
+        if not out["finite"]:
+            fails.append("non-finite map values")
+        if not (-SIGMA_ROUNDING <= out["sigma_min"]
+                and out["sigma_max"] <= 1 + 1e-6):
+            fails.append("sigma outside [0, 1]")
+        if out["z_err_median_m"] > MAX_Z_ERR_MEDIAN \
+                or out["z_err_p99_m"] > MAX_Z_ERR_P99:
+            fails.append("built z strays from the surface")
+        if not 0.0 < occ_share < 0.9:
+            fails.append(f"occupancy share {occ_share}")
+        if builds[0]["k3_launches"] == 0:
+            fails.append("gather_rows was never launched by the build")
+
+        # the 3D fit at iteration 0 against the brute-force oracle, half the
+        # cells near a trunk
+        rng = np.random.default_rng(3)
+        cells = np.stack([rng.uniform(-4.5, 4.5, 256),
+                          rng.uniform(-4.5, 4.5, 256),
+                          rng.uniform(-np.pi, np.pi, 256)], 1)
+        pick = centres[rng.integers(0, len(centres), 128)]
+        ang, rad = rng.uniform(-np.pi, np.pi, 128), rng.uniform(0, 0.3, 128)
+        cells[::2, :2] = pick + rad[:, None] * np.stack(
+            [np.cos(ang), np.sin(ang)], 1)
+        probe = cells[:, :2] + cfg.probe_offset * np.stack(
+            [np.cos(cells[:, 2]), np.sin(cells[:, 2])], 1)
+        _, nn = cKDTree(points[:, :2]).query(probe)
+        to = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+        b3d = build.build_buckets3d(points, cfg, device=device)
+        got = build._fit_cell3d(to(cells), to(np.zeros((256, 4))),
+                                to(points[nn, 2]), b3d, cfg, True) \
+            .cpu().numpy()
+        want = np.stack([_reference_fit(c, np.zeros(4), points, cfg)
+                         for c in cells])
+        oracle_err = np.abs(got - want) - TOL_BUILD_ORACLE * np.abs(want)
+        out["oracle_max_abs_err"] = float(np.abs(got - want).max())
+        if (oracle_err > TOL_BUILD_ORACLE).any():
+            fails.append("3D fits disagree with the brute-force oracle")
+        del b3d
+
+        # the three modes on a 4 x 4 m crop at full resolution
+        crop = MapConfig(map_size_x=4.0, map_size_y=4.0)
+        modes = {m: build.construct_map(points, crop, mode=m,
+                                        device=device).data
+                 for m in ("yawshare", "xyz", "xy")}
+        out["modes_max_diff"] = {m: float((modes[m] - modes["yawshare"])
+                                          .abs().max())
+                                 for m in ("xyz", "xy")}
+        if max(out["modes_max_diff"].values()) > TOL_BUILD_MODES:
+            fails.append("the modes disagree")
+        del modes
+
+        # the card against the port's own CPU build on a 1.6 x 1.6 m crop
+        small = MapConfig(map_size_x=1.6, map_size_y=1.6)
+        t1 = time.perf_counter()
+        card = build.construct_map(points, small, device=device).data.cpu()
+        cpu = build.construct_map(points, small, device="cpu").data
+        d = (card - cpu).abs()
+        out.update(card_vs_cpu_max=float(d.max()),
+                   card_vs_cpu_median=float(d.median()),
+                   card_vs_cpu_s=time.perf_counter() - t1)
+        if out["card_vs_cpu_max"] > TOL_BUILD_CARD_CPU \
+                or out["card_vs_cpu_median"] > TOL_BUILD_CARD_CPU_MEDIAN:
+            fails.append("the card's build disagrees with the CPU's")
+
+        # K3 at the build's two reads, against its twin and index_select
+        reads = []
+        for label, (table, idx) in zip(
+                ("build bucket rows", "build cloud rows"),
+                _build_k3_reads(points, cfg, device)):
+            kern = lambda: gather.gather_rows(table, idx)
+            twin = lambda: gather.gather_rows_twin(table, idx)
+            lib = lambda: torch.index_select(table, 0, idx)
+            g, w = kern(), twin()
+            row = table.element_size() * table.shape[1]
+            distinct = int(torch.unique(idx).numel())
+            nbytes = idx.numel() * (idx.element_size() + row) \
+                + distinct * row
+            v = dict(name="gather_rows",
+                     shape=f"{label}: [{table.shape[0]}, {table.shape[1]}] "
+                     f"{str(table.dtype)[6:]} by [{idx.numel()}] "
+                     f"{str(idx.dtype)[6:]}",
+                     equal=_all_equal(g, w), max_abs_err=_exact_err(g, w),
+                     ms=device_ms(kern), plain_ms=device_ms(twin),
+                     library_ms=device_ms(lib),
+                     bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                     bytes=nbytes, distinct_rows=distinct,
+                     launches_per_build=builds[0]["k3_launches"] // 2)
+            log("# kernel " + json.dumps(v))
+            reads.append(v)
+            if not v["equal"]:
+                fails.append(f"K3 differs from its twin on the {label}")
+        out["k3_reads"] = reads
+
+        # plan on the built map, with both tables
+        scfg = scene_config("hill")
+        pgrid = tgrid.with_packed_f16(tgrid.with_pair_table(grid))
+        starts, goals = scen_batch(PLAN_BATCH, np.random.default_rng(9))
+        t1 = time.perf_counter()
+        kres, ares = api.plan_batch(pgrid, scfg, starts, goals,
+                                    device=device)
+        success = kres.success.cpu().numpy()
+        conv = ares.converged.cpu().numpy()
+        plan_s = time.perf_counter() - t1
+        faults = check_paths(pgrid, kres, starts, goals,
+                             scfg.frontend.max_vel
+                             * scfg.frontend.time_interval)
+        out.update(plan=dict(
+            batch=PLAN_BATCH, plans_per_s=PLAN_BATCH / plan_s,
+            wall_s=plan_s, success_share=float(success.mean()),
+            planned_and_converged_share=float((success & conv).mean()),
+            n_path_faults=len(faults), path_faults=faults[:4]))
+        if out["plan"]["success_share"] < 0.95 \
+                or out["plan"]["planned_and_converged_share"] < 0.95:
+            fails.append("planning on the built map under 95%")
+        if faults:
+            fails.append(f"{len(faults)} path faults on the built map")
+        del pgrid, kres, ares
+
+        # the npz cache under a point-cloud scene's name
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        io.save_map_npz(os.path.join(cache, "desert.npz"), host)
+        _, loaded = api.load_or_build_scene("desert", cache_dir=cache,
+                                            device=device)
+        out["cache_round_trip_equal"] = bool(torch.equal(loaded.data, data))
+        if not out["cache_round_trip_equal"]:
+            fails.append("the npz cache does not give the map back")
+    log("# build " + json.dumps(out))
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
+
+
 def kernel_entries(r):
     """The kernels' JSON entries from the results of a full run, `r` keyed
     by phase name."""
@@ -2264,6 +2629,15 @@ def kernel_entries(r):
                          iters_mean=f64["iters_mean"])))
     for e in entries[:4]:
         e["launches_pipeline"] = pipe["launches"][e["name"]]
+    # K3 on the map builder's path: its launches in one full-width build
+    # and its two reads there (bucket rows, cloud rows)
+    mb = r["build"]
+    entries[2].update(
+        launches_build=mb["builds"][0]["k3_launches"],
+        build_path=[{k: w[k] for k in (
+            "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "launches_per_build")}
+            for w in mb["k3_reads"]])
     # K4 gather_along at `best_g[cells]` beside the parent's, with the
     # sector floor and the real cells of one search round
     k4 = entries[3]
@@ -2382,6 +2756,7 @@ def main(argv=None) -> int:
         "mpc": lambda: phase_mpc(dev, smi),
         "mpc-full": lambda: phase_mpc_full(dev, smi),
         "pipeline": lambda: phase_pipeline(dev, smi),
+        "build": lambda: phase_map_build(dev, smi),
     }
     r = {}
     for name in phases:

@@ -26,7 +26,8 @@ def _chip_smoke():
 def test_phases_default_is_every_phase():
     cs = _chip_smoke()
     assert cs.parse_phases([]) == list(cs.PHASES)
-    assert len(cs.PHASES) == 13 and len(set(cs.PHASES)) == 13
+    assert len(cs.PHASES) == 14 and len(set(cs.PHASES)) == 14
+    assert cs.PHASES[-1] == "build"
 
 
 @pytest.mark.parametrize("arg,want", [
@@ -34,7 +35,8 @@ def test_phases_default_is_every_phase():
     ("admm,gather", ["gather", "admm"]),          # the script's order
     (" mpc , terrain ,mpc", ["terrain", "mpc"]),
     ("pipeline,small-reference", ["small-reference", "pipeline"]),
-    ("mpc-full,track-full-ref,mpc", ["track-full-ref", "mpc", "mpc-full"])])
+    ("mpc-full,track-full-ref,mpc", ["track-full-ref", "mpc", "mpc-full"]),
+    ("build,pipeline", ["pipeline", "build"])])
 def test_phases_subset(arg, want):
     assert _chip_smoke().parse_phases(["--phases", arg]) == want
 
@@ -145,3 +147,24 @@ def test_gather_element_widths(dtype, rows, along):
     (4, 48, True, 16), (4, 4, True, 4), (1, 3, True, 1)])
 def test_gather_rows_word_width(elem, row_bytes, aligned, want):
     assert gather.row_word_bytes(elem, row_bytes, aligned) == want
+
+
+def test_build_phase_cloud_and_oracle():
+    """The build phase's cloud (a triangulated hill, sampled, with trunks)
+    and its brute-force oracle, on the CPU at a small size: every sample
+    on the lifted surface or on a trunk, and the oracle's fit of a flat
+    patch level with sigma 0."""
+    import numpy as np
+    cs = _chip_smoke()
+    from uneven_planner_tpu_torch.config import MapConfig
+    from uneven_planner_tpu_torch.terrain.synthetic import hill_height
+    verts, faces = cs.hill_cloud_mesh(step=0.4)
+    assert faces.max() < len(verts) and faces.shape[1] == 3
+    np.testing.assert_allclose(
+        verts[:, 2], hill_height(verts[:, 0], verts[:, 1]) + cs.BUILD_LIFT)
+    rng = np.random.default_rng(0)
+    flat = np.concatenate([rng.uniform(-1, 1, (4000, 2)),
+                           np.full((4000, 1), 0.3)], 1)
+    fit = cs._reference_fit(np.array([0.1, 0.2, 0.5]), np.zeros(4), flat,
+                            MapConfig())
+    np.testing.assert_allclose(fit, [0.3, 0.0, 0.0, 0.0], atol=1e-12)

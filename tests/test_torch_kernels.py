@@ -1139,3 +1139,50 @@ def test_tracking_on_card_launches_the_admm_kernel(card):
     assert gather.launches["gather_along"] > before[1]["gather_along"]
     assert res.states.is_cuda and torch.isfinite(res.states).all()
     assert not res.qp_failed.any() and float(res.mean_err.max()) < 0.06
+
+
+# K3 on the map builder's two reads at a full hill build's shapes: the
+# bucket table [60 x 60 x 10, K = 125] int32 by the bucket ids of one
+# dispatch's 5 x 5 x 6 windows, and the cloud [M + 1, 4] float32 (16-byte
+# rows) by the candidates those windows hold
+BUILD_SHAPES = [("bucket rows", (36000, 125), torch.int32, 419 * 150),
+                ("cloud rows", (268238, 4), torch.float32, 419 * 2208)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dtype,m", BUILD_SHAPES)
+def test_gather_rows_at_the_map_builders_shapes_on_card(card, name, shape,
+                                                        dtype, m):
+    from uneven_planner_tpu_torch.kernels import gather
+    rng = np.random.default_rng(9)
+    table = torch.tensor(rng.integers(0, shape[0], shape)).to(dtype).to(card)
+    idx = torch.tensor(rng.integers(0, shape[0], m), dtype=torch.int32,
+                       device=card)
+    idx[:2] = torch.tensor([0, shape[0] - 1])
+    before = gather.launches["gather_rows"]
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather.launches["gather_rows"] == before + 1
+    assert torch.equal(got, gather.gather_rows_twin(table, idx))
+
+
+@pytest.mark.cuda
+def test_map_build_on_card_goes_through_k3_and_matches_the_cpu(card):
+    """A small build on the card reads through K3 (two launches a dispatch)
+    and gives the CPU build's map (float32 both; summation orders differ)."""
+    from uneven_planner_tpu_torch.kernels import gather
+    from uneven_planner_tpu_torch.terrain import build
+    from uneven_planner_tpu_torch.terrain.synthetic import hill_height
+    rng = np.random.default_rng(10)
+    xy = rng.uniform(-5.5, 5.5, (40000, 2))
+    pts = np.concatenate([xy, hill_height(xy[:, 0], xy[:, 1])[:, None]], 1)
+    cfg = MapConfig(xy_resolution=0.4, yaw_resolution=0.8)
+    before = gather.launches["gather_rows"]
+    got = build.construct_map(pts, cfg, chunk=4096)
+    torch.cuda.synchronize()
+    n = gather.launches["gather_rows"] - before
+    assert n > 0 and n % 2 == 0
+    want = build.construct_map(pts, cfg, chunk=4096, device="cpu")
+    d = (got.data.cpu() - want.data).abs()
+    assert got.data.is_cuda and float(d.max()) < 2e-3
+    assert float(d.median()) < 1e-6

@@ -123,6 +123,36 @@ def test_failed_search_does_not_poison_the_batch(grids, planned):
     assert (a.x[keep] - got_a.x[keep]).abs().max() < 2e-2
 
 
+def test_plan_batch_on_a_bare_grid_matches_jax():
+    """F3: a grid with no gather table (what `build.construct_map` returns)
+    plans in the port as in the JAX package, whose lookups fall back to the
+    dense grid (grid.py:791-793): 2 scenarios, held as above."""
+    jg = jax_grid().replace(data_pair=None, data_packed=None,
+                            data_packed16=None)
+    tg = port_grid(jg).replace(data_pair=None, data_packed16=None)
+    starts, goals = plan_scenarios(2, seed=22)
+    ref_k, ref_a = jax.jit(jax.vmap(lambda s, g: japi.plan(
+        jg, JCFG, s, g, shape=JSHAPE, lbfgs_overrides=OVR)))(
+        jnp.asarray(starts), jnp.asarray(goals))
+    got_k, got_a = api.plan_batch(tg, TCFG, starts, goals, shape=TSHAPE,
+                                  lbfgs_overrides=OVR, device=CPU)
+    ref_k = jax.tree.map(np.asarray, ref_k)
+    assert ref_k.success.all()
+    np.testing.assert_array_equal(got_k.success.numpy(), ref_k.success)
+    np.testing.assert_array_equal(got_k.rounds.numpy(), ref_k.rounds)
+    np.testing.assert_allclose(got_k.cost.numpy(), ref_k.cost, rtol=1e-6)
+    x0, bnd = jax.vmap(lambda p, m: jmanager.init_guess_fixed_jax(
+        p, m, JCFG.manager, JSHAPE.piece_xy, JSHAPE.piece_yaw))(
+        jnp.asarray(ref_k.path), jnp.asarray(ref_k.path_mask))
+    run = jax.jit(jax.vmap(lambda x, b: jalm.solve_flat(
+        x, b, JSHAPE, jg, JCFG.alm, lbfgs_overrides=OVR)))
+    ref, stable, spread = lane_stability(run, np.asarray(x0), bnd)
+    np.testing.assert_array_equal(np.asarray(ref.evals)[stable],
+                                  np.asarray(ref_a.evals)[stable])
+    assert_lanes_match(ref_a, got_a, stable, spread, min_stable=1)
+    assert torch.isfinite(got_a.x).all()
+
+
 # ---------------------------------------------------------------------------
 # trajectory evaluation and metrics on the solved trajectories
 # ---------------------------------------------------------------------------
@@ -219,13 +249,22 @@ def test_state_samplers_match_jax(planned):
 # scenes, devices, imports
 # ---------------------------------------------------------------------------
 
-def test_load_or_build_scene_builds_hill_and_names_what_is_missing():
+def test_load_or_build_scene_builds_hill_and_names_what_is_missing(
+        tmp_path, monkeypatch):
+    """The hill is synthetic; a point-cloud scene without its cloud raises
+    the reader's missing-file error, which names maps/<name>.pcd (here the
+    package's maps directory, pointed at an empty one)."""
+    from uneven_planner_tpu_torch.terrain import io
     scfg, g = api.load_or_build_scene("hill", device=CPU)
     assert scfg.name == "hill" and g.voxel_num == (200, 200, 64)
     assert g.data.dtype == torch.float32 and g.data_pair is None
+    maps = tmp_path / "maps"
+    maps.mkdir()
+    monkeypatch.setattr(io, "REFERENCE_MAPS_DIR", str(maps))
     for name in ("desert", "forest", "vocano"):
-        with pytest.raises(NotImplementedError, match=r"maps/.*\.pcd"):
-            api.load_or_build_scene(name, device=CPU)
+        with pytest.raises(FileNotFoundError, match=rf"maps/{name}\.pcd"):
+            api.load_or_build_scene(name, cache_dir=str(tmp_path / "cache"),
+                                    device=CPU)
     with pytest.raises(ValueError):
         api.load_or_build_scene("nowhere", device=CPU)
 
@@ -252,7 +291,11 @@ def test_planning_modules_import_no_jax():
             "uneven_planner_tpu_torch.minco.minco",
             "uneven_planner_tpu_torch.minco.traj",
             "uneven_planner_tpu_torch.manager",
-            "uneven_planner_tpu_torch.convert"]
+            "uneven_planner_tpu_torch.convert",
+            "uneven_planner_tpu_torch.terrain.build",
+            "uneven_planner_tpu_torch.terrain.grid",
+            "uneven_planner_tpu_torch.terrain.io",
+            "uneven_planner_tpu_torch.terrain.mesh"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -315,3 +315,113 @@ def test_get_terrain_variables_batch_matches_jax(grids):
     got_v = tgrid.get_terrain_batch(tg, torch.tensor(pos))
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0,
                                atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The scalar terrain API (grid.py:190-365), batched, and the bare grid's
+# channel-major lookup (fault F3: it raised where the JAX package falls
+# back to the dense grid)
+# ---------------------------------------------------------------------------
+
+SCALAR_API = ["get_terrain", "get_c", "get_terrain_with_grad",
+              "terrain_variables_from_value", "get_terrain_variables",
+              "get_all_with_grad", "se3_lift", "yaw_from_rotation",
+              "terrain_sigma"]
+
+
+def _scalar_pair(jg, tg, name, pos):
+    """(JAX result under vmap, port result on [20, 30, 3] poses reshaped to
+    [600, ...]) of one function of the scalar API, as tuples."""
+    J, T = jnp.asarray(pos), torch.tensor(pos).reshape(20, 30, 3)
+    value = np.asarray(jax.vmap(lambda p: jgrid.get_terrain(jg, p))(J))
+    if name == "get_c":
+        want = jgrid.get_c(jnp.asarray(value))
+        got = tgrid.get_c(torch.tensor(value).reshape(20, 30, 4))
+    elif name == "terrain_variables_from_value":
+        want = jax.vmap(jgrid.terrain_variables_from_value)(
+            jnp.asarray(value), J[:, 2])
+        got = tgrid.terrain_variables_from_value(
+            torch.tensor(value).reshape(20, 30, 4), T[..., 2])
+    elif name == "yaw_from_rotation":
+        R = jax.vmap(lambda p: jgrid.se3_lift(jg, p)[0])(J)
+        want = jax.vmap(jgrid.yaw_from_rotation)(R)
+        got = tgrid.yaw_from_rotation(
+            torch.tensor(np.asarray(R)).reshape(20, 30, 3, 3))
+    else:
+        want = jax.vmap(lambda p: getattr(jgrid, name)(jg, p))(J)
+        got = getattr(tgrid, name)(tg, T)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    return ([np.asarray(w) for w in want],
+            [g.reshape((600,) + g.shape[2:]).numpy() for g in got])
+
+
+@pytest.mark.parametrize("name", SCALAR_API)
+def test_scalar_terrain_api_matches_jax(grids, name):
+    """Each function on 600 poses (in the map, at its edges, out of it and
+    across the yaw wrap), batched over two leading dimensions, against the
+    JAX function under vmap."""
+    jg, tg = grids
+    pos = _poses3(jg, seed=11)
+    want, got = _scalar_pair(jg, tg, name, pos)
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-12)
+    if name == "yaw_from_rotation":     # the lift's yaw comes back
+        inside = np.asarray(jax.vmap(lambda p: jgrid.is_in_map(jg, p))(
+            jnp.asarray(pos)))
+        d = np.angle(np.exp(1j * (got[0] - pos[:, 2])))
+        np.testing.assert_allclose(d[inside], 0.0, atol=1e-9)
+
+
+def test_get_all_with_grad_is_autograd_of_get_terrain_variables(grids):
+    _, tg = grids
+    pos = torch.tensor(_poses3(tg, seed=12), requires_grad=True)
+    _, grads = tgrid.get_all_with_grad(tg, pos.detach())
+    rows = [torch.autograd.grad(tgrid.get_terrain_variables(tg, pos)[:, k]
+                                .sum(), pos)[0] for k in range(7)]
+    np.testing.assert_allclose(torch.stack(rows, 1).numpy(), grads.numpy(),
+                               rtol=0, atol=1e-10)
+
+
+def test_bare_grid_cm_lookup_and_gradient_match_jax(grids):
+    """F3: on a grid with no table, `get_terrain_variables_cm` reads the
+    dense grid (grid.py:791-793) and passes gradients in px, py and yaw,
+    as the JAX function does."""
+    jg, tg = grids
+    jb = jg.replace(data_pair=None, data_packed=None, data_packed16=None)
+    tb = tg.replace(data_pair=None, data_packed16=None)
+    px, py, yaw = _poses(jg, seed=13)
+    prim = tuple(jnp.asarray(a) for a in (px, py, yaw))
+    jf = lambda a, b, c: jgrid.get_terrain_variables_cm(jb, a, b, c)
+    want, vjp = jax.vjp(jf, *prim)
+    ins = [torch.tensor(a, requires_grad=True) for a in (px, py, yaw)]
+    got = tgrid.get_terrain_variables_cm(tb, *ins)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-12)
+    rng = np.random.default_rng(14)
+    ct = rng.normal(size=(7, px.size))
+    got_vjp = torch.autograd.grad((got * torch.tensor(ct)).sum(), ins)
+    for w, g in zip(vjp(jnp.asarray(ct)), got_vjp):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-10)
+    tans = [rng.normal(size=px.size) for _ in range(3)]
+    _, want_jvp = jax.jvp(jf, prim, tuple(map(jnp.asarray, tans)))
+    with fwAD.dual_level():
+        args = [fwAD.make_dual(torch.tensor(a), torch.tensor(t))
+                for a, t in zip((px, py, yaw), tans)]
+        got_jvp = fwAD.unpack_dual(
+            tgrid.get_terrain_variables_cm(tb, *args)).tangent
+    np.testing.assert_allclose(got_jvp.numpy(), np.asarray(want_jvp),
+                               rtol=0, atol=1e-10)
+    shaped = tgrid.get_terrain_variables_cm(
+        tb, *(torch.tensor(a).reshape(20, 30) for a in (px, py, yaw)))
+    assert shaped.shape == (7, 20, 30)
+    torch.testing.assert_close(shaped.reshape(7, -1), got.detach(), rtol=0,
+                               atol=0)
+    # the tables, where attached, read the same field
+    np.testing.assert_allclose(
+        tgrid.get_terrain_variables_cm(tg, *map(torch.tensor,
+                                                (px, py, yaw))).numpy(),
+        got.detach().numpy(), rtol=0, atol=1e-12)

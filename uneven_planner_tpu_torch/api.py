@@ -1,5 +1,5 @@
-"""High-level API (port of `uneven_planner_tpu/api.py`): build a scene, plan
-one or many trajectories from start and goal poses.
+"""High-level API (port of `uneven_planner_tpu/api.py`): build or load a
+scene, plan one or many trajectories from start and goal poses.
 
 `plan_batch` is the planning path: batched kinodynamic search -> on-device
 fixed-piece init guess -> batched flat ALM solve.  It runs on the card
@@ -8,6 +8,7 @@ unless the caller names another device.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -17,24 +18,38 @@ from uneven_planner_tpu_torch import manager, resolve_device
 from uneven_planner_tpu_torch.config import SceneConfig, scene_config
 from uneven_planner_tpu_torch.frontend import kino_init
 from uneven_planner_tpu_torch.solver import alm
+from uneven_planner_tpu_torch.terrain import build, io
+from uneven_planner_tpu_torch.terrain import grid as tgrid
 from uneven_planner_tpu_torch.terrain.synthetic import make_synthetic_grid
 
-# the point-cloud scenes of the reference, built from its maps/<name>.pcd
-PCD_SCENES = ("desert", "mountain", "vocano", "volcano", "forest")
 
-
-def load_or_build_scene(name: str, dtype=np.float32, device=None):
-    """(SceneConfig, TerrainGrid) of a scene.  Only the synthetic hill is
-    built here; the other scenes are fitted from the reference's point
-    clouds by `terrain/build.py` of the JAX package, which is not ported
-    yet."""
+def load_or_build_scene(name: str, cache_dir: str = "data",
+                        dtype=np.float32, device=None):
+    """(SceneConfig, TerrainGrid) of a scene on `device` (None: CUDA): the
+    synthetic hill, or a point-cloud scene built by `terrain/build.py` from
+    its `maps/<name>.pcd` (`io.load_scene_cloud`) and cached as
+    `cache_dir/<name>.npz`, the reference's .map-cache startup
+    (uneven_map.cpp:166-167).  A scene whose cloud is missing raises the
+    reader's FileNotFoundError, which names the path."""
     scfg = scene_config(name)
-    if name != "hill":
-        raise NotImplementedError(
-            f"scene {name!r} is built from the reference point cloud "
-            f"maps/{scfg.name}.pcd by terrain/build.py of the JAX package, "
-            "which this port does not have yet; only 'hill' can be built")
-    return scfg, make_synthetic_grid(scfg.map, dtype=dtype, device=device)
+    dev = resolve_device(device)
+    if name == "hill":
+        return scfg, make_synthetic_grid(scfg.map, dtype=dtype, device=dev)
+    os.makedirs(cache_dir, exist_ok=True)
+    cache = os.path.join(cache_dir, f"{name}.npz")
+    if os.path.exists(cache):
+        data = io.load_map_npz(cache)
+    else:
+        cloud = io.load_scene_cloud(name)
+        data = build.construct_map(cloud, scfg.map, device=dev).data \
+            .cpu().numpy()
+        io.save_map_npz(cache, data)
+    m = scfg.map
+    grid = tgrid.from_buffers(
+        torch.from_numpy(np.asarray(data, dtype)).to(dev), m.min_cnormal,
+        m.max_rho, m.xy_resolution, m.yaw_resolution, m.map_origin,
+        m.gravity)
+    return scfg, grid
 
 
 def _on(device, a, dtype) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """SE(2) terrain field F: SE(2) -> R x S^2_+ as dense PyTorch tensors
 (port of `uneven_planner_tpu/terrain/grid.py`: the lookups of the ALM solver,
-and the index maps, occupancy reads and sigma lookup of the front end).
+the index maps, occupancy reads and sigma lookup of the front end, and the
+scalar terrain API).
 
 The map is a dense grid over (x, y, yaw), xy clamped and yaw periodic, whose
 cells hold the RXS2 value (z, sigma, zb0, zb1) (uneven_map.h:46).  The
@@ -488,11 +489,15 @@ def get_terrain_variables_cm(grid: TerrainGrid, px, py, yaw,
     tensors of one shape (yaw pre-normalized into [-pi, pi)).
 
     exact=False with the f16 table attached takes the 2-row packed path
-    (grid.py:789-790); otherwise the exact 4-row pair-table path."""
+    (grid.py:789-790); otherwise the exact 4-row pair-table path, and on a
+    bare grid (no table) `get_terrain_variables_batch`, the 8 corner rows
+    through K3, differentiable in px, py and yaw by autograd."""
     if not exact and grid.data_packed16 is not None:
         return get_terrain_variables_cm_packed16(grid, px, py, yaw)
-    if grid.data_pair is None:
-        raise ValueError("grid has no pair table (with_pair_table)")
+    if grid.data_pair is None:                  # a bare grid (grid.py:791-793)
+        poses = torch.stack([px, py, yaw], dim=-1).reshape(-1, 3)
+        return get_terrain_variables_batch(grid, poses).T.reshape(
+            (7,) + tuple(px.shape))
     return _terrain_tv(_runner(grid, "pair", True), px, py, yaw)
 
 
@@ -602,10 +607,10 @@ def terrain_sigma_cm(grid: TerrainGrid, px, py, yaw) -> torch.Tensor:
     return torch.where(k["inside"], val, 0.0)
 
 
-def get_terrain_batch(grid: TerrainGrid, poses: torch.Tensor) -> torch.Tensor:
-    """[M, 4] RXS2 values (z, sigma, zb0, zb1) at [M, 3] SE(2) poses:
-    trilinear interpolation over the 8 corner rows of the dense grid
-    (uneven_map.h:154-201); out-of-map poses read zeros."""
+def _corners(grid: TerrainGrid, poses: torch.Tensor):
+    """The 8 corner rows v [M, 2(x), 2(y), 2(yaw), 4] of [M, 3] SE(2) poses,
+    read through K3 with clamped xy and wrapped yaw, and the fractional
+    offsets diff [M, 3] (grid.py:620-640)."""
     nx, ny, nyaw = grid.voxel_num
     half = _vec([0.5 * grid.xy_resolution, 0.5 * grid.xy_resolution,
                  0.5 * grid.yaw_resolution], poses)
@@ -630,6 +635,14 @@ def get_terrain_batch(grid: TerrainGrid, poses: torch.Tensor) -> torch.Tensor:
             + iw[:, None, None, :])                             # [M, 2, 2, 2]
     v = gather_rows(grid.data.reshape(-1, 4), flat.reshape(-1)) \
         .reshape(M, 2, 2, 2, 4)
+    return v, diff
+
+
+def get_terrain_batch(grid: TerrainGrid, poses: torch.Tensor) -> torch.Tensor:
+    """[M, 4] RXS2 values (z, sigma, zb0, zb1) at [M, 3] SE(2) poses:
+    trilinear interpolation over the 8 corner rows of the dense grid
+    (uneven_map.h:154-201); out-of-map poses read zeros."""
+    v, diff = _corners(grid, poses)
     w0 = diff[:, 0].reshape(-1, 1, 1, 1)
     w1 = diff[:, 1].reshape(-1, 1, 1)
     w2 = diff[:, 2].reshape(-1, 1)
@@ -646,3 +659,155 @@ def get_terrain_variables_batch(grid: TerrainGrid,
     value = get_terrain_batch(grid, poses)
     return _tv_from_fields(value[:, 1], value[:, 2], value[:, 3],
                            poses[:, 2]).T
+
+
+# ---------------------------------------------------------------------------
+# The scalar terrain API (grid.py:190-365), batched over the leading
+# dimensions of `pos` [..., 3]
+# ---------------------------------------------------------------------------
+
+def _batched(fn, pos: torch.Tensor, *outs):
+    """fn([M, 3] poses) -> tensors [M, *out]; reshaped to [..., *out]."""
+    lead = tuple(pos.shape[:-1])
+    res = fn(pos.reshape(-1, 3))
+    if isinstance(res, torch.Tensor):
+        return res.reshape(lead + outs[0])
+    return tuple(r.reshape(lead + o) for r, o in zip(res, outs))
+
+
+def get_terrain(grid: TerrainGrid, pos: torch.Tensor) -> torch.Tensor:
+    """[..., 4] interpolated RXS2 value (z, sigma, zb0, zb1) at [..., 3]
+    SE(2) poses; out-of-map poses read zeros (uneven_map.h:154-201)."""
+    return _batched(lambda p: get_terrain_batch(grid, p), pos, (4,))
+
+
+def get_c(value: torch.Tensor) -> torch.Tensor:
+    """Normal z-component c = sqrt(1 - |zb|^2) of RXS2 values [..., 4]
+    (uneven_map.h:46)."""
+    zb = value[..., 2:4]
+    return torch.sqrt(torch.clamp(1.0 - torch.sum(zb * zb, dim=-1),
+                                  min=1e-12))
+
+
+def _with_grad(grid: TerrainGrid, poses: torch.Tensor):
+    """[M, 4] values and [M, 4, 3] analytic gradients (grid.py:239-273)."""
+    v, w = _corners(grid, poses)                  # [M, 2x, 2y, 2yaw, 4]
+    w1, w2 = w[:, 1].reshape(-1, 1), w[:, 2].reshape(-1, 1)
+    w0 = w[:, 0].reshape(-1, 1, 1, 1)
+    vx = v[:, 0] * (1 - w0) + v[:, 1] * w0        # [M, 2y, 2yaw, 4]
+    vy = vx[:, 0] * (1 - w1[:, :, None]) + vx[:, 1] * w1[:, :, None]
+    val = vy[:, 0] * (1 - w2) + vy[:, 1] * w2     # [M, 4]
+    g_yaw = (vy[:, 1] - vy[:, 0])[:, 1:4] / grid.yaw_resolution
+    dy = vx[:, 1] - vx[:, 0]                      # [M, 2yaw, 4]
+    g_y = (dy[:, 0] * (1 - w2) + dy[:, 1] * w2)[:, 1:4] / grid.xy_resolution
+    dx = v[:, 1] - v[:, 0]                        # [M, 2y, 2yaw, 4]
+    g_x = ((1 - w2) * (1 - w1) * dx[:, 0, 0] + (1 - w2) * w1 * dx[:, 1, 0]
+           + w2 * (1 - w1) * dx[:, 0, 1]
+           + w2 * w1 * dx[:, 1, 1])[:, 1:4] / grid.xy_resolution
+    grad3 = torch.stack([g_x, g_y, g_yaw], dim=-1)   # [M, 3 rows, 3 cols]
+    c = get_c(val)
+    grad_c = -(grad3[:, 1] * val[:, 2:3] + grad3[:, 2] * val[:, 3:4]) \
+        / c[:, None]
+    grad = torch.cat([grad3, grad_c[:, None, :]], dim=1)          # [M, 4, 3]
+    inside = is_in_map(grid, poses)
+    return (torch.where(inside[:, None], val, 0.0),
+            torch.where(inside[:, None, None], grad, 0.0))
+
+
+def get_terrain_with_grad(grid: TerrainGrid, pos: torch.Tensor):
+    """Values [..., 4] and analytic gradients [..., 4, 3]: rows d(sigma,
+    zb0, zb1, c), columns d(x, y, yaw); the corner-difference derivative
+    of the trilinear interpolation with the chain rule for c
+    (uneven_map.h:258-315), not autograd."""
+    return _batched(lambda p: _with_grad(grid, p), pos, (4,), (4, 3))
+
+
+def terrain_variables_from_value(value: torch.Tensor,
+                                 yaw: torch.Tensor) -> torch.Tensor:
+    """[..., 7] terrain variables {invCosVphix, sinPhix, invCosVphiy,
+    sinPhiy, cosXi, invCosXi, sigma} from RXS2 values [..., 4] and yaws
+    [...] (uneven_map.h:221-256)."""
+    zb0, zb1 = value[..., 2], value[..., 3]
+    c = get_c(value)
+    inv_c = 1.0 / c
+    cyaw, syaw = torch.cos(yaw), torch.sin(yaw)
+    t = cyaw * zb0 + syaw * zb1                   # xyaw . zb
+    s = -(-syaw * zb0 + cyaw * zb1)               # -yyaw . zb
+    sqrt_1_t2 = torch.sqrt(torch.clamp(1.0 - t * t, min=1e-12))
+    inv_sqrt_1_t2 = 1.0 / sqrt_1_t2
+    return torch.stack([inv_sqrt_1_t2, -c * t * inv_sqrt_1_t2,
+                        sqrt_1_t2 * inv_c, s * inv_sqrt_1_t2, c, inv_c,
+                        value[..., 1]], dim=-1)
+
+
+def get_terrain_variables(grid: TerrainGrid,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """[..., 7] terrain variables at [..., 3] SE(2) poses."""
+    return terrain_variables_from_value(get_terrain(grid, pos), pos[..., 2])
+
+
+def get_all_with_grad(grid: TerrainGrid, pos: torch.Tensor):
+    """[..., 7] terrain variables and [..., 7, 3] gradients in (x, y, yaw)
+    by the explicit chain rule of uneven_map.h:317-377 (the parity oracle
+    of autograd through `get_terrain_variables`)."""
+    value, rgrad = get_terrain_with_grad(grid, pos)  # rows sig, zb0, zb1, c
+    zb0, zb1 = value[..., 2:3], value[..., 3:4]
+    c = get_c(value)[..., None]
+    inv_c = 1.0 / c
+    yaw = pos[..., 2:3]
+    cyaw, syaw = torch.cos(yaw), torch.sin(yaw)
+    t = cyaw * zb0 + syaw * zb1
+    s = syaw * zb0 - cyaw * zb1
+    sqrt_1_t2 = torch.sqrt(torch.clamp(1.0 - t * t, min=1e-12))
+    inv_sqrt = 1.0 / sqrt_1_t2
+    inv_sqrt3 = inv_sqrt ** 3
+    dzb0, dzb1 = rgrad[..., 1, :], rgrad[..., 2, :]   # [..., 3] each
+    yaw_only = torch.zeros_like(dzb0)
+    yaw_only[..., 2] = 1.0
+    dt = dzb0 * cyaw + dzb1 * syaw - s * yaw_only
+    ds = dzb0 * syaw - dzb1 * cyaw + t * yaw_only
+    dc = rgrad[..., 3, :]
+    values = terrain_variables_from_value(value, pos[..., 2])
+    grads = torch.stack([
+        t * inv_sqrt3 * dt,                                   # invCosVphix
+        -(t * inv_sqrt * dc + inv_sqrt3 * c * dt),            # sinPhix
+        -inv_c * (t * inv_sqrt * dt + sqrt_1_t2 * inv_c * dc),  # invCosVphiy
+        inv_sqrt * ds + t * inv_sqrt3 * s * dt,               # sinPhiy
+        dc,                                                   # cosXi
+        -inv_c * inv_c * dc,                                  # invCosXi
+        rgrad[..., 0, :],                                     # sigma
+    ], dim=-2)
+    return values, grads
+
+
+def se3_lift(grid: TerrainGrid, pos: torch.Tensor):
+    """Rotations R [..., 3, 3] (columns xb, yb, zb) and 3D positions
+    [..., 3] at [..., 3] SE(2) poses (uneven_map.h:203-218)."""
+    value = get_terrain(grid, pos)
+    zb = torch.stack([value[..., 2], value[..., 3], get_c(value)], dim=-1)
+    yaw = pos[..., 2]
+    xyaw = torch.stack([torch.cos(yaw), torch.sin(yaw),
+                        torch.zeros_like(yaw)], dim=-1)
+    yb = torch.linalg.cross(zb, xyaw, dim=-1)
+    yb = yb / torch.linalg.vector_norm(yb, dim=-1, keepdim=True)
+    xb = torch.linalg.cross(yb, zb, dim=-1)
+    R = torch.stack([xb, yb, zb], dim=-1)
+    p = torch.stack([pos[..., 0], pos[..., 1], value[..., 0]], dim=-1)
+    return R, p
+
+
+def yaw_from_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Yaws [...] of rotations [..., 3, 3] made by `se3_lift`
+    (Sherman-Morrison form, uneven_map.cpp:56-62)."""
+    p = R[..., :2, 2]
+    b = R[..., :2, 0]
+    pp = torch.sum(p * p, dim=-1)[..., None, None]
+    eye = torch.eye(2, dtype=R.dtype, device=R.device)
+    M = eye + p[..., :, None] * p[..., None, :] / (1.0 - pp)
+    x = torch.sum(M * b[..., None, :], dim=-1)
+    return torch.atan2(x[..., 1], x[..., 0])
+
+
+def terrain_sigma(grid: TerrainGrid, pos: torch.Tensor) -> torch.Tensor:
+    """[...] interpolated sigma at [..., 3] SE(2) poses."""
+    return get_terrain(grid, pos)[..., 1]
