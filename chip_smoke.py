@@ -64,7 +64,21 @@ Phases, each of which must pass (exit code 1 otherwise):
               scenarios x 500 ticks; scenarios/s, planned-and-converged
               share, tracking error; then search, solve and tracking once
               more, each alone, for the split of the time;
- 14. build    the map builder at full width: a hill cloud (the surface
+ 14. nested-reference  the reference's nested solve on 8 lanes of a
+              coarse grid: alm.solve, solve_compacted and debug_iterates
+              on the card (fp32, kernels) against the port on the CPU
+              (fp32, plain twins), per lane;
+ 15. nested   the nested path at full width: the search, the on-device
+              init guess and alm.solve (PHR-ALM around L-BFGS with the
+              Lewis-Overton line search, every evaluation through K2) on
+              256 hill scenarios with examples/plan_demo.py's settings,
+              launches counted; solve_compacted on the same inputs; the
+              post-solve report, and a profile of the first outer round;
+ 16. packed   the split-bf16 table: its lookup (K3 and tensor operations)
+              at the headline's 368,640 lookups against its CPU twin and
+              the exact lookup, timed beside K1 and K2; K3 at its items;
+              a headline batch on that table with the headline's gates;
+ 17. build    the map builder at full width: a hill cloud (the surface
               triangulated at 1 cm, 300,000 samples, 40 trunks) written as
               a PCD, read back through io.load_scene_cloud, built twice with
               build.construct_map on the hill map (200 x 200 x 64 cells, 2
@@ -75,11 +89,12 @@ Phases, each of which must pass (exit code 1 otherwise):
               map and its npz cache.
 Prints the kernels' JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package beside
-it, it exits 2 and prints no result.  `--phases` names phases 3-14 by their
-short names (PHASES below; 6 runs with 5 and the plan's profile with 8): it
-runs the device and build steps and those phases, prints their lines and
-`# total`, and ends with {"partial": [...]} instead of the kernels' line
-and the ok line, so a partial run never passes for the whole.
+it, it exits 2 and prints no result.  `--phases` names phases 3-17 by their
+short names (PHASES below; 6 runs with 5, the plan's profile with 8 and
+the nested path's with 15): it runs the device and build steps and those
+phases, prints their lines and `# total`, and ends with {"partial": [...]}
+instead of the kernels' line and the ok line, so a partial run never
+passes for the whole.
 """
 
 from __future__ import annotations
@@ -189,10 +204,28 @@ TOL_BUILD_ORACLE = 5e-3
 TOL_BUILD_MODES = 2e-3
 TOL_BUILD_CARD_CPU = 2e-3
 TOL_BUILD_CARD_CPU_MEDIAN = 1e-6
+# the nested path's settings (examples/plan_demo.py:86-91)
+NESTED_SHAPE = (10, 20, 16)
+NESTED_OVERRIDES = {"mem_size": 8, "max_iterations": 250}
+NESTED_BUCKETS = (1, 4, 16)
+# card (float32) against the port on the CPU (float32, plain twins), 8
+# lanes.  The two sum in other orders, so a lane whose CPU counts move when
+# its x0 moves by 1-2 float32 ulps (ULP_EPS) cannot be held count for
+# count; such a lane is held to one outer round and the ALM band, the
+# others exactly (as the CPU tests hold the port to the JAX package)
+ULP_EPS = (2.0 ** -23, -2.0 ** -23, 2.0 ** -22, -2.0 ** -22)
+TOL_NESTED_X = 2e-2
+# debug_iterates rows of the card against the CPU's, on the lanes whose
+# rows no ULP_EPS change of x0 moves
+TOL_NESTED_ROWS = 2e-2
+# the split-bf16 lookup against the exact one: relative to max(|exact|,
+# 1), as tests/test_terrain.py::test_packed_lookup_matches_exact_within_bf16
+TOL_PACKED_EXACT = 5e-5
 # phase names for --phases, in the order a full run takes them
 PHASES = ("terrain", "gather", "tanh", "admm", "small-reference",
           "headline", "plan-reference", "plan", "track-reference",
-          "track-full-ref", "mpc", "mpc-full", "pipeline", "build")
+          "track-full-ref", "mpc", "mpc-full", "pipeline",
+          "nested-reference", "nested", "packed", "build")
 
 
 def log(*a):
@@ -366,7 +399,10 @@ def terrain_cases():
     without J on the search's [B, 10240] candidates, K1 hi-only with J on
     the solver's [B, S] samples, K2 with J in init_scaling on [B, S] (cost
     gradient) and on [B x num_vars, S] (the forward-mode constraint
-    Jacobian)."""
+    Jacobian).  Nested path (256 scenarios, ProblemShape(10, 20, 16)): K1
+    on the search, K2 with J at every line-search evaluation on [B, S]
+    (and in init_scaling, as on the planning path), K2 without J on the
+    constraints that end each outer round."""
     from uneven_planner_tpu_torch.solver import alm
     cases = [("headline", M_HEADLINE, name, exact, jac)
              for name, exact in [("terrain_tv_packed16", False),
@@ -387,6 +423,17 @@ def terrain_cases():
              True),
             (f"{path}: init_scaling jacobian", B * n * S, "terrain_tv_pair",
              True, True)]
+    S = alm.ProblemShape(*NESTED_SHAPE).equal_num
+    n = alm.ProblemShape(*NESTED_SHAPE).num_vars
+    cases += [
+        ("nested: search sigma", PLAN_BATCH * 10240, "terrain_tv_packed16",
+         False, False),
+        ("nested: line-search evaluation", PLAN_BATCH * S, "terrain_tv_pair",
+         True, True),
+        ("nested: round constraints", PLAN_BATCH * S, "terrain_tv_pair",
+         True, False),
+        ("nested: init_scaling jacobian", PLAN_BATCH * n * S,
+         "terrain_tv_pair", True, True)]
     return cases
 
 
@@ -509,14 +556,19 @@ def phase_small_reference(device):
     return out
 
 
-def phase_headline(device, smi):
+# the kernel of each fast table's lookup in a solver step
+FAST_LOOKUP_KERNEL = {"f16": "terrain_tv_packed16", "packed": "gather_rows"}
+
+
+def phase_headline(device, smi, table="f16"):
+    """The headline at full width on the fast table `table` (the solver
+    iterates on it; `init_scaling` and the recheck read the exact one)."""
     import numpy as np
     import torch
     from uneven_planner_tpu_torch import headline
-    from uneven_planner_tpu_torch.kernels import terrain_lookup as kernels
     from uneven_planner_tpu_torch.solver import alm
     hc = headline.HeadlineConfig()
-    cfg, grid = headline.scene_setup(device=device)
+    cfg, grid = headline.scene_setup(device=device, table=table)
     rng = np.random.default_rng(0)
 
     t0 = time.perf_counter()
@@ -538,11 +590,11 @@ def phase_headline(device, smi):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.synchronize()
-    kernels.reset_launches()
+    reset_all_launches()
     t0 = time.perf_counter()
     res, conv = run(batches[1])                      # fresh, timed, counted
     dt = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = all_launches()
 
     x0, bnd, _ = batches[1]
     scal = alm._make_scaling(x0, bnd, hc.shape, grid, cfg.alm)
@@ -557,7 +609,7 @@ def phase_headline(device, smi):
     viol = recheck[conv] > cfg.alm.epsilon_con
     evals = res.evals.cpu().numpy()
     out = dict(
-        solves_per_s=B / dt, batch=B, wall_s=dt, card=smi,
+        table=table, solves_per_s=B / dt, batch=B, wall_s=dt, card=smi,
         converged_share=float(conv.mean()),
         warmup_converged_share=float(conv0.mean()),
         evals_mean=float(evals.mean()), evals_max=int(evals.max()),
@@ -569,10 +621,12 @@ def phase_headline(device, smi):
                     and torch.isfinite(res.traj.c_xy).all()),
         x_shape=list(res.x.shape),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log("# headline " + json.dumps(out))
+    log(("# headline " if table == "f16" else f"# headline-{table} ")
+        + json.dumps(out))
     fails = []
-    if launches["terrain_tv_packed16"] != res.steps:
-        fails.append("K1 launches != solver steps")
+    fast = FAST_LOOKUP_KERNEL[table]
+    if launches[fast] != res.steps:
+        fails.append(f"{fast} launches != solver steps")
     if launches["terrain_tv_pair"] == 0:
         fails.append("K2 never launched")
     if out["converged_share"] < 0.95:
@@ -2150,6 +2204,378 @@ def phase_pipeline(device, smi):
 
 
 # ---------------------------------------------------------------------------
+# the reference's nested solve, and the split-bf16 table
+# ---------------------------------------------------------------------------
+
+def nested_reference_setup(device):
+    """(cfg, card grid, CPU grid, shape, x0, bound) of the 8-lane
+    card-vs-CPU check: the coarse hill grid with the pair and f16 tables,
+    ProblemShape(6, 12, 8), straight-line scenarios as the headline draws
+    them, all float32."""
+    import dataclasses
+    import numpy as np
+    from uneven_planner_tpu_torch import headline
+    from uneven_planner_tpu_torch.config import MapConfig
+    from uneven_planner_tpu_torch.solver import alm
+    coarse = MapConfig(xy_resolution=0.2, yaw_resolution=0.45)
+    cfg, grid = headline.scene_setup(coarse, device=device)
+    _, cpu_grid = headline.scene_setup(coarse, device="cpu")
+    shape = alm.ProblemShape(6, 12, 8)
+    x0, bnd, _ = headline.make_batch(8, cfg, shape,
+                                     np.random.default_rng(13),
+                                     device=device)
+    return cfg, grid, cpu_grid, shape, x0, bnd
+
+
+def ulp_unstable(run, x0, counts):
+    """[B] bool: the lanes whose `counts(run(x))` (a [k, B, ...] tensor)
+    change when x0 moves by each of ULP_EPS."""
+    import torch
+    ref = counts(run(x0))
+    moved = torch.zeros(ref.shape[1], dtype=torch.bool)
+    for e in ULP_EPS:
+        c = counts(run(x0 * (1.0 + e)))
+        moved |= (c != ref).reshape(c.shape[0], c.shape[1], -1).any(2) \
+            .any(0)
+    return moved
+
+
+def phase_nested_reference(device):
+    """The nested path on 8 lanes of the coarse grid: `alm.solve`,
+    `solve_compacted` (buckets (1, 2, 4)) and `debug_iterates` (4 lanes x
+    64 evaluations) on the card (float32, kernels) against the same calls
+    of the port on the CPU (float32, plain twins).  Per lane, converged and
+    L-BFGS status must be equal and x within TOL_NESTED_X; outer rounds
+    equal on the lanes whose CPU counts no ULP_EPS change of x0 moves, and
+    within one round on the others.  debug_iterates: the (round,
+    iteration, valid) rows equal and the iterates within TOL_NESTED_ROWS
+    on the lanes whose CPU rows no ULP_EPS change moves."""
+    import torch
+    from uneven_planner_tpu_torch.solver import alm
+    cfg, grid, cpu_grid, shape, x0, bnd = nested_reference_setup(device)
+    cpu = lambda t: alm.tree_map(lambda a: a.cpu(), t)
+    ovr = {"mem_size": 8, "max_iterations": 40}
+    solve = lambda x, b, g: alm.solve(x, b, shape, g, cfg.alm,
+                                      lbfgs_overrides=ovr)
+    counts = lambda r: torch.stack([r.converged.long(), r.outer_iters,
+                                    r.lbfgs_status])
+    unstable = ulp_unstable(lambda x: solve(x, cpu(bnd), cpu_grid),
+                            x0.cpu(), counts)
+    out, fails = dict(lanes=8, ulp_unstable_lanes=unstable.tolist()), []
+    for name, run in [
+            ("solve", solve),
+            ("solve_compacted", lambda x, b, g: alm.solve_compacted(
+                x, b, shape, g, cfg.alm, lbfgs_overrides=ovr,
+                buckets=(1, 2, 4)))]:
+        card = run(x0, bnd, grid)
+        ref = run(x0.cpu(), cpu(bnd), cpu_grid)
+        d_outer = (card.outer_iters.cpu() - ref.outer_iters).abs()
+        dx = (card.x.cpu() - ref.x).abs().amax(1)
+        out[name] = dict(
+            converged_card=int(card.converged.sum()),
+            converged_cpu=int(ref.converged.sum()),
+            outer_iters_card=card.outer_iters.tolist(),
+            outer_iters_cpu=ref.outer_iters.tolist(),
+            inner_iters_card=card.inner_iters.tolist(),
+            inner_iters_cpu=ref.inner_iters.tolist(),
+            lbfgs_status_card=card.lbfgs_status.tolist(),
+            lbfgs_status_cpu=ref.lbfgs_status.tolist(),
+            max_dx=dx.tolist(), steps_card=card.steps,
+            polls_card=card.polls)
+        bad = {"converged": card.converged.cpu() != ref.converged,
+               "lbfgs_status": card.lbfgs_status.cpu() != ref.lbfgs_status,
+               "outer_iters": (d_outer > 0) & ~unstable | (d_outer > 1)}
+        for k, v in bad.items():
+            if v.any():
+                fails.append(f"{name}: {k} differs on lanes "
+                             f"{torch.nonzero(v).flatten().tolist()}")
+        if not torch.isfinite(card.x).all() \
+                or not float(dx.max()) <= TOL_NESTED_X:
+            fails.append(f"{name}: x differs by {float(dx.max()):.3g}")
+    n, evals = 4, 64
+    stepper = lambda x, b, g: alm.debug_iterates(
+        x[:n], alm.tree_map(lambda a: a[:n], b), shape, g, cfg.alm,
+        max_evals=evals, lbfgs_overrides=ovr)
+    rows = lambda r: torch.stack([r["outer"], r["inner"],
+                                  r["valid"].long()])
+    rows_unstable = ulp_unstable(lambda x: stepper(x, cpu(bnd), cpu_grid),
+                                 x0.cpu(), rows)
+    card = {k: v.cpu() for k, v in stepper(x0, bnd, grid).items()}
+    ref = stepper(x0.cpu(), cpu(bnd), cpu_grid)
+    held = ~rows_unstable
+    same_rows = (rows(card) == rows(ref)).all(0)             # [n, evals]
+    dx = (card["x"] - ref["x"]).abs().amax(-1)               # [n, evals]
+    out["debug_iterates"] = dict(
+        lanes=n, rows=evals, ulp_unstable_lanes=rows_unstable.tolist(),
+        valid_card=card["valid"].sum(1).tolist(),
+        valid_cpu=ref["valid"].sum(1).tolist(),
+        share_rows_same=float(same_rows.float().mean()),
+        max_dx_held_lanes=float(dx[held].max()) if held.any() else None,
+        max_dx_same_rows=float(dx[same_rows].max())
+        if same_rows.any() else None)
+    if not torch.isfinite(card["x"]).all() \
+            or not bool(same_rows[held].all()) \
+            or (held.any() and not float(dx[held].max()) <= TOL_NESTED_ROWS):
+        fails.append("debug_iterates rows differ on a held lane")
+    log("# nested-reference " + json.dumps(out))
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
+
+
+def _lane_stats(a):
+    a = a.float()
+    return dict(mean=float(a.mean()), max=int(a.max()))
+
+
+def post_solve_report(res, good, grid, cfg):
+    """The post-solve report of examples/plan_demo.py:100-113 over the good
+    lanes: the largest (smallest for cos xi) value of each quantity, and
+    the share of good lanes within each limit, and within it widened by
+    the 5% that tests/test_alm.py:54 allows for the scaled-constraint
+    tolerance."""
+    from uneven_planner_tpu_torch.minco import traj
+    m = {k: v.cpu() for k, v in
+         traj.max_metrics(res.traj, grid, 2048).items()}
+    nh = traj.non_hol_error(res.traj, 2048).cpu()
+    a = cfg.alm
+    limits = dict(max_vx=a.max_vel, max_ax=a.max_acc_lon,
+                  max_ay=a.max_acc_lat, max_cur=a.max_kap,
+                  min_cxi=a.min_cxi, max_sig=a.max_sig)
+    out = {}
+    for k, lim in limits.items():
+        v = m[k][good]
+        if not v.numel():
+            out[k] = None
+            continue
+        low = k == "min_cxi"
+        share = lambda f: float((v >= lim / f if low else v <= lim * f)
+                                .float().mean())
+        out[k] = dict(limit=lim, worst=float(v.min() if low else v.max()),
+                      share_within=share(1.0), share_within_5pct=share(1.05))
+    v = nh[good]
+    out["non_hol_error"] = dict(mean=float(v.mean()), max=float(v.max())) \
+        if v.numel() else None
+    return out
+
+
+def phase_nested(device, smi):
+    """The nested path at full width: the hill full map with the pair and
+    f16 tables, 256 scenarios drawn as the `plan` phase draws them; the
+    search, `init_guess_fixed_device`, then `alm.solve` with
+    examples/plan_demo.py's settings (ProblemShape(10, 20, int_K=16),
+    L-BFGS memory 8 and 250 iterations, cold duals, ALMConfig()), the
+    kernels' launches counted over the whole flow; then `solve_compacted`
+    (buckets (1, 4, 16)) on the same inputs, its lanes against solve's."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch import headline, manager
+    from uneven_planner_tpu_torch.frontend import kino_init
+    from uneven_planner_tpu_torch.solver import alm
+    cfg, grid = headline.scene_setup(device=device)
+    fe = cfg.frontend
+    B = PLAN_BATCH
+    starts, goals = scen_batch(B, np.random.default_rng(5))
+    to = lambda a: torch.as_tensor(a, device=device)
+    shape = alm.ProblemShape(*NESTED_SHAPE)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    kres = kino_init.plan(grid, fe, to(starts), to(goals))
+    x0, bound = manager.init_guess_fixed_device(
+        kres.path, kres.path_mask, cfg.manager, shape.piece_xy,
+        shape.piece_yaw)
+    success = kres.success.cpu()
+    t1 = time.perf_counter()
+    res = alm.solve(x0, bound, shape, grid, cfg.alm,
+                    lbfgs_overrides=NESTED_OVERRIDES)
+    conv = res.converged.cpu()
+    t2 = time.perf_counter()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    t3 = time.perf_counter()
+    com = alm.solve_compacted(x0, bound, shape, grid, cfg.alm,
+                              lbfgs_overrides=NESTED_OVERRIDES,
+                              buckets=NESTED_BUCKETS)
+    com_conv = com.converged.cpu()
+    t4 = time.perf_counter()
+    launches_com = all_launches()
+    launches_com = {k: launches_com[k] - launches[k] for k in launches}
+
+    faults = check_paths(grid, kres, starts, goals,
+                         fe.max_vel * fe.time_interval)
+    good = success & conv
+    rounds = int(res.outer_iters.max())
+    differ = {k: int((getattr(com, k).cpu() != getattr(res, k).cpu()).sum())
+              for k in ("converged", "outer_iters", "inner_iters",
+                        "lbfgs_status")}
+    dx = (com.x - res.x).abs().amax(1).cpu()
+    out = dict(
+        batch=B, card=smi, shape=list(NESTED_SHAPE),
+        lbfgs_overrides=NESTED_OVERRIDES, search_s=t1 - t0,
+        search_success_share=float(success.float().mean()),
+        solve=dict(
+            solves_per_s=B / (t2 - t1), wall_s=t2 - t1,
+            converged_share=float(conv.float().mean()),
+            planned_and_converged_share=float(good.float().mean()),
+            outer_rounds=_lane_stats(res.outer_iters),
+            inner_iters=_lane_stats(res.inner_iters),
+            lockstep_rounds=rounds, lockstep_evaluations=res.steps,
+            host_syncs=res.polls,
+            host_syncs_per_outer_round=res.polls / max(rounds, 1),
+            lbfgs_status=dict(zip(*map(lambda a: a.tolist(), torch.unique(
+                res.lbfgs_status.cpu(), return_counts=True)))),
+            k2_launches=launches["terrain_tv_pair"]),
+        solve_compacted=dict(
+            solves_per_s=B / (t4 - t3), wall_s=t4 - t3,
+            buckets=list(NESTED_BUCKETS),
+            converged_share=float(com_conv.float().mean()),
+            planned_and_converged_share=float(
+                (success & com_conv).float().mean()),
+            lockstep_evaluations=com.steps, host_syncs=com.polls,
+            k2_launches=launches_com["terrain_tv_pair"],
+            lanes_differing_from_solve=differ,
+            lanes_with_other_x=int((dx > 0).sum()),
+            max_dx_to_solve=float(dx.max())),
+        report=post_solve_report(res, good, grid, cfg),
+        launches=launches, path_faults=faults[:8],
+        n_path_faults=len(faults),
+        finite=bool(torch.isfinite(res.x[kres.success]).all()),
+        x_shape=list(res.x.shape), peak_mem_gb=peak)
+    log("# nested " + json.dumps(out))
+    fails = []
+    if out["solve"]["planned_and_converged_share"] < 0.95:
+        fails.append("fewer than 95% of scenarios planned and converged")
+    if out["solve_compacted"]["planned_and_converged_share"] < 0.95:
+        fails.append("solve_compacted: fewer than 95% planned and "
+                     "converged")
+    if faults:
+        fails.append(f"{len(faults)} path faults: {faults[:4]}")
+    for name in ("terrain_tv_packed16", "terrain_tv_pair", "gather_rows",
+                 *K4_FAMILY):
+        if launches[name] == 0:
+            fails.append(f"{name} was never launched on the nested path")
+    if launches["terrain_tv_pair"] < res.steps:
+        fails.append("fewer K2 launches than lockstep evaluations")
+    if not out["finite"] or out["x_shape"] != [B, shape.num_vars]:
+        fails.append("non-finite or misshapen solver output")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out, (cfg, grid, shape, x0, bound)
+
+
+def phase_nested_profile(ctx, iterations=8):
+    """Device time by kernel and the device's busy share over the first
+    outer round of the full-width nested solve, its L-BFGS capped at
+    `iterations` (30 lockstep evaluations on the hill at 8)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from uneven_planner_tpu_torch.solver import alm
+    cfg, grid, shape, x0, bound = ctx
+    p = alm._params(cfg.alm, dict(NESTED_OVERRIDES,
+                                  max_iterations=iterations))
+    scal = alm._make_scaling(x0, bound, shape, grid, cfg.alm)
+    st = alm.init_state(x0, shape, cfg.alm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, res = alm.outer_round(st, bound, scal, shape, grid, cfg.alm, p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, rows = device_time_by_kernel(prof)
+    out = dict(lockstep_evaluations=res.steps, host_syncs=res.polls,
+               wall_ms_per_evaluation=wall / res.steps * 1e3,
+               device_ms_per_evaluation=total / res.steps / 1e3,
+               device_busy_share=total / 1e6 / wall,
+               device_calls_per_evaluation=sum(c for _, _, c in rows)
+               / res.steps,
+               top=[dict(kernel=k[:80], device_ms=u / 1e3, calls=c)
+                    for u, k, c in rows[:8]])
+    log("# nested-profile " + json.dumps(out))
+    return out
+
+
+def phase_packed(device, smi):
+    """The split-bf16 table at the headline's shape (M = 4096 x 90 =
+    368,640): its lookup (two 48-byte rows through K3, then tensor
+    operations) against its CPU twin and the exact lookup, timed beside K1
+    (f16) and K2 (exact) with K3's share; K3 alone at the table's items
+    against its twin and `index_select`; then one headline batch of 4096
+    on `scene_setup(table="packed")` with the headline's gates."""
+    import torch
+    from uneven_planner_tpu_torch import headline
+    from uneven_planner_tpu_torch.kernels import gather
+    from uneven_planner_tpu_torch.kernels import terrain_lookup as kernels
+    from uneven_planner_tpu_torch.terrain import grid as tgrid
+    _, grid = headline.scene_setup(device=device, table="packed")
+    _, cpu_grid = headline.scene_setup(device="cpu", table="packed")
+    f16 = tgrid.with_packed_f16(grid)
+    M = M_HEADLINE
+    px, py, yaw = smoke_poses(grid, M, seed=3)
+    geom = tgrid.kernel_geometry(grid)
+    lookup = lambda: tgrid.get_terrain_variables_cm_packed(grid, px, py,
+                                                           yaw)
+    got = lookup()
+    twin = tgrid.get_terrain_variables_cm_packed(
+        cpu_grid, px.cpu(), py.cpu(), yaw.cpu())
+    exact = tgrid.get_terrain_variables_cm(grid, px, py, yaw)
+    e_twin = _err(got.cpu(), twin, *TOL["tv"])
+    rel = ((got - exact).abs() / exact.abs().clamp(min=1.0)).max()
+    # K3 at the table's items: the two x-corner rows of every lookup
+    k = tgrid._cell(grid, px, py, yaw, low_y_rule=True,
+                    to_index=tgrid._to_index32)
+    rows = torch.stack([tgrid.cell_row(k[x], k["iy0"], k["iw"],
+                                       grid.voxel_num)
+                        for x in ("ix0", "ix1")]).reshape(-1)
+    table = grid.data_packed
+    k3 = lambda: gather.gather_rows(table, rows)
+    k3_twin = lambda: gather.gather_rows_twin(table, rows)
+    clipped = rows.long().clamp(0, table.shape[0] - 1)
+    k3_lib = lambda: torch.index_select(table, 0, clipped)
+    k3_equal = torch.equal(k3(), k3_twin())
+    n_idx = rows.numel()
+    k3_bytes = n_idx * (4 + 2 * 48)
+    times = dict(
+        packed_lookup=device_ms(lookup),
+        k1_f16=device_ms(lambda: kernels.terrain_tv_packed16(
+            f16.data_packed16, geom, px, py, yaw, False, False)),
+        k2_exact=device_ms(lambda: kernels.terrain_tv_pair(
+            grid.data_pair, geom, px, py, yaw, False)),
+        k3=device_ms(k3))
+    k3_row = dict(
+        name="gather_rows", shape=f"packed: bf16 items [{table.shape[0]}, "
+        f"12] int32 by {n_idx} int32", equal=k3_equal,
+        max_abs_err=0.0 if k3_equal else float("inf"), ms=times["k3"],
+        plain_ms=device_ms(k3_twin), library_ms=device_ms(k3_lib),
+        bound_ms=k3_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
+        bytes=k3_bytes)
+    log("# kernel " + json.dumps(k3_row))
+    out = dict(
+        M=M, card=smi, max_abs_err_twin=e_twin[0],
+        n_out_of_tol_twin=e_twin[1], finite=e_twin[2],
+        max_rel_err_exact=float(rel), tolerance_exact=TOL_PACKED_EXACT,
+        tolerance_twin=TOL["tv"], ms=times,
+        k3_share=times["k3"] / times["packed_lookup"])
+    log("# packed-lookup " + json.dumps(out))
+    fails = []
+    if e_twin[1] or not e_twin[2]:
+        fails.append("the split-bf16 lookup disagrees with its CPU twin")
+    if not float(rel) < TOL_PACKED_EXACT:
+        fails.append(f"the split-bf16 lookup is {float(rel):.3g} from the "
+                     "exact one")
+    if not k3_equal:
+        fails.append("K3 disagrees with its twin on the bf16 items")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    head, _ = phase_headline(device, smi, table="packed")
+    return dict(lookup=out, k3=k3_row, headline=head)
+
+
+# ---------------------------------------------------------------------------
 # the map builder: point cloud -> SE(2) terrain field -> plans
 # ---------------------------------------------------------------------------
 
@@ -2482,9 +2908,9 @@ def kernel_entries(r):
     by phase name."""
     variants, gathers, admms = r["terrain"], r["gather"], r["admm"]
     tanhs, probe_a = r["tanh"]
-    head, plan, mpc, pipe, mpc_full, track_full = (
+    head, plan, mpc, pipe, mpc_full, track_full, nested, packed = (
         r[k] for k in ("headline", "plan", "mpc", "pipeline", "mpc-full",
-                       "track-full-ref"))
+                       "track-full-ref", "nested", "packed"))
     # each kernel at the shape and mode its main path gives it: K1 hi-only
     # with J (every solver evaluation) and K2 with J (init_scaling) on the
     # headline path, with their variants on the planning path and the
@@ -2514,6 +2940,7 @@ def kernel_entries(r):
             name=name, route="cuda", source=terrain_src, replaces=replaces,
             launches=head["launches"][name],
             launches_planning_path=plan["launches"][name],
+            launches_nested_path=nested["launches"][name],
             max_abs_err=terrain_err(v),
             tolerance=TOL, ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
@@ -2525,7 +2952,7 @@ def kernel_entries(r):
                 bound_by=w["bound_by"], ms_parent=w["ms_parent"],
                 layout=w["layout"]) for w in variants
                 if w["name"] == name and w["path"].startswith(path)]
-               for path in ("planning", "pipeline")}))
+               for path in ("planning", "pipeline", "nested")}))
     for name, replaces, shape in [
             ("gather_rows", "experiments/e1_gather.py:94",
              "path occupancy: [40000] bool"),
@@ -2534,7 +2961,9 @@ def kernel_entries(r):
         v = pick(name, shape=shape)
         entries.append(dict(
             name=name, route="cuda", source=gather_src, replaces=replaces,
-            launches=plan["launches"][name], max_abs_err=v["max_abs_err"],
+            launches=plan["launches"][name],
+            launches_nested_path=nested["launches"][name],
+            max_abs_err=v["max_abs_err"],
             tolerance=TOL_GATHER, ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"],
             library_ms=v["library_ms"], shape=shape, ms_cold=v["ms_cold"],
@@ -2632,7 +3061,13 @@ def kernel_entries(r):
     # K3 on the map builder's path: its launches in one full-width build
     # and its two reads there (bucket rows, cloud rows)
     mb = r["build"]
+    k3 = packed["k3"]
     entries[2].update(
+        launches_packed_headline=packed["headline"]["launches"][
+            "gather_rows"],
+        packed_path={k: k3[k] for k in (
+            "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
         launches_build=mb["builds"][0]["k3_launches"],
         build_path=[{k: w[k] for k in (
             "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -2667,6 +3102,7 @@ def kernel_entries(r):
             replaces="experiments/e5_dyngather.py:37",
             launches=plan["launches"][name],
             launches_pipeline=pipe["launches"][name],
+            launches_nested_path=nested["launches"][name],
             launches_mpc=mpc["launches"][name],
             max_abs_err=v["max_abs_err"], tolerance=TOL_GATHER, ms=v["ms"],
             plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
@@ -2741,6 +3177,11 @@ def main(argv=None) -> int:
         phase_plan_profile(ctx)
         return plan
 
+    def nested_and_profile():
+        nested, ctx = phase_nested(dev, smi)
+        nested["profile"] = phase_nested_profile(ctx)
+        return nested
+
     run = {
         "terrain": lambda: phase_kernels(
             headline.scene_setup(device=dev)[1]),
@@ -2756,6 +3197,9 @@ def main(argv=None) -> int:
         "mpc": lambda: phase_mpc(dev, smi),
         "mpc-full": lambda: phase_mpc_full(dev, smi),
         "pipeline": lambda: phase_pipeline(dev, smi),
+        "nested-reference": lambda: phase_nested_reference(dev),
+        "nested": nested_and_profile,
+        "packed": lambda: phase_packed(dev, smi),
         "build": lambda: phase_map_build(dev, smi),
     }
     r = {}

@@ -23,6 +23,18 @@ JSHAPE = jalm.ProblemShape(6, 12, 8)
 TSHAPE = talm.ProblemShape(6, 12, 8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """The CPU loops of these tests are thousands of small tensor
+    operations, where PyTorch's thread pool only adds hand-off cost (and
+    oversubscribes the cores under parallel test workers): run them on one
+    thread and put the setting back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jg = jax_grid()
@@ -133,3 +145,68 @@ def test_solve_flat_matches_jax_lane_by_lane(setup):
     np.testing.assert_allclose(res.traj.c_xy.numpy(),
                                np.asarray(ref.traj.c_xy),
                                rtol=0, atol=1e-6 + 100 * spread.max())
+
+
+def test_solve_flat_split_packed_matches_exact_population():
+    """tests/test_alm.py:354 on the port: on the split hi+lo bf16 table
+    (through `get_terrain_variables_cm(exact=False)`) the flat solver's
+    convergence and solutions over a 64-scenario float32 population stay
+    those of the exact pair-table path, within the gate's bounds, and the
+    lanes it calls converged pass an exact-table recheck."""
+    from uneven_planner_tpu_torch import manager
+    from uneven_planner_tpu_torch.config import ManagerConfig, MapConfig
+    from uneven_planner_tpu_torch.terrain import grid as tgrid
+    from uneven_planner_tpu_torch.terrain.synthetic import \
+        make_synthetic_grid
+    g32 = make_synthetic_grid(MapConfig(xy_resolution=0.2,
+                                        yaw_resolution=0.45),
+                              dtype=np.float32, device="cpu")
+    gp = tgrid.with_pair_table(g32)
+    gs = tgrid.with_packed_table(gp)
+    shape = talm.ProblemShape(piece_xy=5, piece_yaw=10, int_K=8)
+    rng = np.random.default_rng(23)
+    N = 64
+    x0s, bounds = [], []
+    for _ in range(N):
+        ang = rng.uniform(-np.pi, np.pi)
+        start = rng.uniform(-3.5, -1.5, size=2)
+        goal = np.clip(start + rng.uniform(1.2, 2.2)
+                       * np.array([np.cos(ang), np.sin(ang)]), -4, 4)
+        yaw = np.arctan2(goal[1] - start[1], goal[0] - start[0])
+        t = np.linspace(0, 1, 16)[:, None]
+        path = np.concatenate([(1 - t) * start + t * goal,
+                               np.full((16, 1), yaw)], axis=1)
+        x0, bound = manager.init_guess_fixed(path, ManagerConfig(),
+                                             piece_xy=5, piece_yaw=10)
+        x0s.append(x0)
+        bounds.append(bound)
+    f32 = lambda a: torch.tensor(np.stack(a), dtype=torch.float32)
+    xs = f32(x0s)
+    bs = talm.Boundary(*[f32([getattr(b, f) for b in bounds])
+                         for f in talm.Boundary._fields])
+    ov = {"mem_size": 16, "max_iterations": 100}
+    r_exact = talm.solve_flat(xs, bs, shape, gp, CFG, lbfgs_overrides=ov)
+    r_split = talm.solve_flat(xs, bs, shape, gs, CFG, lbfgs_overrides=ov)
+    ce, cs = r_exact.converged.numpy(), r_split.converged.numpy()
+    # the packed path must not lose convergences
+    assert cs.mean() >= ce.mean() - 2.0 / N, (ce.sum(), cs.sum())
+    both = ce & cs
+    assert both.mean() > 0.9, (ce.sum(), cs.sum())
+    # the same optimum on agreeing lanes, within the ALM tolerance band
+    dx = np.abs(r_split.x.numpy()[both] - r_exact.x.numpy()[both])
+    assert np.percentile(dx.max(axis=1), 90) < 5e-3, \
+        np.percentile(dx.max(axis=1), 90)
+    assert dx.max() < 2e-2, dx.max()
+    # comparable effort
+    ie = r_exact.inner_iters.numpy()[both].mean()
+    is_ = r_split.inner_iters.numpy()[both].mean()
+    assert is_ < 1.5 * ie, (ie, is_)
+    # the reported residuals hold on the exact table
+    scal = talm._make_scaling(xs, bs, shape, gp, CFG)
+    zero = talm.DualState(lam=torch.zeros((N, shape.equal_num)),
+                          mu=torch.zeros((N, shape.non_equal_num)),
+                          rho=torch.full((N,), CFG.rho))
+    rh, rg = talm.exact_residuals(r_split.x, zero, bs, shape, gp, CFG, scal)
+    res_exact = torch.clamp(torch.maximum(rh, rg), min=0.0).numpy()
+    viol = res_exact[cs] > CFG.epsilon_con * 1.05
+    assert viol.mean() < 0.05, res_exact[cs].max()

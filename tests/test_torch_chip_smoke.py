@@ -26,8 +26,9 @@ def _chip_smoke():
 def test_phases_default_is_every_phase():
     cs = _chip_smoke()
     assert cs.parse_phases([]) == list(cs.PHASES)
-    assert len(cs.PHASES) == 14 and len(set(cs.PHASES)) == 14
+    assert len(cs.PHASES) == 17 and len(set(cs.PHASES)) == 17
     assert cs.PHASES[-1] == "build"
+    assert cs.PHASES[-4:-1] == ("nested-reference", "nested", "packed")
 
 
 @pytest.mark.parametrize("arg,want", [
@@ -36,7 +37,9 @@ def test_phases_default_is_every_phase():
     (" mpc , terrain ,mpc", ["terrain", "mpc"]),
     ("pipeline,small-reference", ["small-reference", "pipeline"]),
     ("mpc-full,track-full-ref,mpc", ["track-full-ref", "mpc", "mpc-full"]),
-    ("build,pipeline", ["pipeline", "build"])])
+    ("build,pipeline", ["pipeline", "build"]),
+    ("packed,nested,nested-reference",
+     ["nested-reference", "nested", "packed"])])
 def test_phases_subset(arg, want):
     assert _chip_smoke().parse_phases(["--phases", arg]) == want
 

@@ -17,6 +17,18 @@ from torch_parity import (CPU, assert_lanes_match, jax_grid, lane_stability,
 HC = headline.HeadlineConfig(piece_xy=6, piece_yaw=12, int_K=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """The CPU loops of these tests are thousands of small tensor
+    operations, where PyTorch's thread pool only adds hand-off cost (and
+    oversubscribes the cores under parallel test workers): run them on one
+    thread and put the setting back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def grid():
     return port_grid(jax_grid())
@@ -52,3 +64,21 @@ def test_compaction_dispatch_and_retry_change_no_lane(grid):
         assert torch.equal(getattr(compact, name), getattr(base, name))
         assert torch.equal(getattr(retried, name), getattr(base, name))
     assert_lanes_match(base, sliced, stable, spread, min_stable=12)
+
+
+def test_scene_setup_attaches_the_chosen_table():
+    """`headline.scene_setup(table=...)`: bench.py's three choices
+    (BENCH_TABLE there), each beside the pair table; an unknown one
+    raises."""
+    from uneven_planner_tpu_torch.config import MapConfig
+    coarse = MapConfig(xy_resolution=0.4, yaw_resolution=0.9)
+    attached = {}
+    for table in ("f16", "packed", "pair"):
+        _, g = headline.scene_setup(coarse, device="cpu", table=table)
+        assert g.data_pair is not None and g.data.dtype == torch.float32
+        attached[table] = (g.data_packed16 is not None,
+                           g.data_packed is not None)
+    assert attached == {"f16": (True, False), "packed": (False, True),
+                        "pair": (False, False)}
+    with pytest.raises(ValueError):
+        headline.scene_setup(coarse, device="cpu", table="bf16")

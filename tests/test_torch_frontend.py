@@ -25,6 +25,19 @@ from uneven_planner_tpu_torch.kernels import gather
 from torch_parity import (CPU, assert_paths_valid, jax_grid, plan_scenarios,
                           port_grid)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """The CPU loops of these tests are thousands of small tensor
+    operations, where PyTorch's thread pool only adds hand-off cost (and
+    oversubscribes the cores under parallel test workers): run them on one
+    thread and put the setting back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIZING = dict(frontier_size=128, max_rounds=60)   # tests/test_frontend.py
 JFE = dataclasses.replace(JFrontendConfig(), **SIZING)
 FE = dataclasses.replace(FrontendConfig(), **SIZING)

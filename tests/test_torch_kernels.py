@@ -17,6 +17,19 @@ from uneven_planner_tpu_torch.kernels import terrain_lookup as kernels
 from uneven_planner_tpu_torch.terrain import grid as tgrid
 from uneven_planner_tpu_torch.terrain.synthetic import make_synthetic_grid
 
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """The CPU loops of these tests are thousands of small tensor
+    operations, where PyTorch's thread pool only adds hand-off cost (and
+    oversubscribes the cores under parallel test workers): run them on one
+    thread and put the setting back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODES = ["pair", "packed16", "packed16_exact"]
 
 

@@ -225,3 +225,122 @@ def test_generate_se2_and_jerk_cost_se2_match_jax():
         np.testing.assert_allclose(float(cost[b]), float(jminco.jerk_cost_se2(
             wxy, jnp.asarray(txy[b]), wyaw, jnp.asarray(tyaw[b]))),
             rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# row-major uniform MINCO (uniform.py:126-175) and the root finder
+# ---------------------------------------------------------------------------
+
+def test_uniform_fast_path_matches_generate():
+    """tests/test_minco.py:150 on the port: the constant-inverse path equals
+    the general `generate` for uniform piece times (coefficients and jerk
+    energy, 1e-9), and equals the JAX package's `generate_norm` and
+    `jerk_cost_norm` (1e-12)."""
+    rng = np.random.default_rng(7)
+    t = torch.tensor
+    for N, dim in [(2, 2), (5, 2), (10, 2), (20, 1)]:
+        B = 3
+        Tp = np.array([0.37, 0.8, 1.9])
+        inner = rng.normal(size=(B, N - 1, dim))
+        head = rng.normal(size=(B, 3, dim))
+        tail = rng.normal(size=(B, 3, dim))
+        ts = t(np.repeat(Tp[:, None], N, 1))
+        c_ref = minco.generate(t(inner), ts, t(head), t(tail))
+        cn = tu.generate_norm(t(inner), t(Tp), t(head), t(tail), N)
+        np.testing.assert_allclose(tu.denormalize(cn, t(Tp)).numpy(),
+                                   c_ref.numpy(), rtol=1e-9, atol=1e-9)
+        jerk = tu.jerk_cost_norm(cn, t(Tp), N)
+        np.testing.assert_allclose(jerk.numpy(),
+                                   minco.jerk_cost(c_ref, ts).numpy(),
+                                   rtol=1e-9)
+        for b in range(B):
+            want = ju.generate_norm(*map(jnp.asarray, (inner[b], Tp[b],
+                                                       head[b], tail[b])), N)
+            np.testing.assert_allclose(cn[b].numpy(), np.asarray(want),
+                                       rtol=1e-12, atol=1e-12)
+            np.testing.assert_allclose(
+                float(jerk[b]),
+                float(ju.jerk_cost_norm(want, jnp.asarray(Tp[b]), N)),
+                rtol=1e-12)
+
+
+def test_uniform_sample_plan_static_yaw_location():
+    """tests/test_minco.py:172 on the port: the static yaw-piece mapping of
+    the sample plan agrees with locating by global time
+    (alm_traj_opt.cpp:747-764) through `eval_traj`."""
+    N, Nyaw, K = 10, 20, 16
+    _, _, _, yidx, BY0, BY1 = tu.sample_plan(N, Nyaw, K)
+    rng = np.random.default_rng(3)
+    Tp = 0.21
+    Tpy = Tp * N / Nyaw
+    t = torch.tensor
+    inner = rng.normal(size=(1, Nyaw - 1, 1))
+    head = rng.normal(size=(1, 3, 1))
+    tail = rng.normal(size=(1, 3, 1))
+    ts = t(np.full((1, Nyaw), Tpy))
+    c = minco.generate(t(inner), ts, t(head), t(tail))
+    cn = tu.generate_norm(t(inner), t([Tpy]), t(head), t(tail), Nyaw)[0]
+    cy = cn[yidx.reshape(-1), :, 0].numpy()
+    yaw_static = np.sum(BY0.reshape(-1, 6) * cy, axis=-1)
+    dyaw_static = np.sum(BY1.reshape(-1, 6) * cy, axis=-1) / Tpy
+    u = np.arange(K + 1) / K
+    t_glob = ((np.arange(N)[:, None] + u[None, :]) * Tp).reshape(-1)
+    val, dot, _, _ = minco.eval_traj(c, ts, t(t_glob[None]))
+    np.testing.assert_allclose(yaw_static, val[0, :, 0].numpy(), rtol=1e-7,
+                               atol=1e-9)
+    np.testing.assert_allclose(dyaw_static, dot[0, :, 0].numpy(), rtol=1e-7,
+                               atol=1e-9)
+
+
+def test_roots_match_numpy_and_jax():
+    """tests/test_rootfinder.py on the port: Durand-Kerner roots of five
+    quintics at once against numpy's (1e-5) and the JAX package's
+    (1e-12)."""
+    from uneven_planner_tpu.utils import rootfinder as jrf
+    from uneven_planner_tpu_torch.utils import rootfinder as rf
+    rng = np.random.default_rng(0)
+    P = rng.normal(size=(5, 6))
+    z = rf.roots(torch.tensor(P)).numpy()
+    want = np.asarray(jax.jit(jax.vmap(jrf.roots))(jnp.asarray(P)))
+    for p, zp, zj in zip(P, z, want):
+        z_np = np.roots(p)
+        key = lambda a: a[np.argsort(a.real + 1e-6 * a.imag)]
+        np.testing.assert_allclose(key(zp), key(z_np), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(zp, zj, rtol=0, atol=1e-12)
+
+
+def test_poly_val_and_sqr():
+    from uneven_planner_tpu_torch.utils import rootfinder as rf
+    p = torch.tensor([2.0, -1.0, 3.0], dtype=torch.float64)  # 2x^2 - x + 3
+    assert float(rf.poly_val(p, torch.tensor(2.0, dtype=p.dtype))) == 9.0
+    sq = rf.poly_sqr(p).numpy()
+    np.testing.assert_allclose(np.polyval(sq, 1.7),
+                               np.polyval(p.numpy(), 1.7) ** 2, rtol=1e-12)
+    np.testing.assert_array_equal(rf.poly_der(p).numpy(), [4.0, -1.0])
+
+
+def test_max_vel_rate_exact_vs_dense():
+    """Root-isolation max ||v|| matches (and upper-bounds) dense sampling,
+    and equals the JAX package's (1e-9)."""
+    from uneven_planner_tpu.utils import rootfinder as jrf
+    from uneven_planner_tpu_torch.minco.traj import SE2Traj, max_vel_rate
+    from uneven_planner_tpu_torch.utils import rootfinder as rf
+    rng = np.random.default_rng(1)
+    N = 5
+    t = torch.tensor
+    inner = rng.normal(size=(1, N - 1, 2))
+    ts = rng.uniform(0.6, 1.4, size=(1, N))
+    head = np.array([[[0.0, 0.0], [0.4, 0.1], [0.0, 0.0]]])
+    tail = np.array([[[1.5, 1.0], [0.0, -0.2], [0.0, 0.0]]])
+    c_xy = minco.generate(t(inner), t(ts), t(head), t(tail))
+    exact = float(rf.max_vel_rate_exact(c_xy, t(ts))[0])
+    c_yaw = minco.generate(torch.zeros((1, N - 1, 1), dtype=torch.float64),
+                           t(ts), torch.zeros((1, 3, 1), dtype=torch.float64),
+                           torch.zeros((1, 3, 1), dtype=torch.float64))
+    dense = float(max_vel_rate(SE2Traj(c_xy, t(ts), c_yaw, t(ts)),
+                               num_samples=4096)[0])
+    assert exact >= dense - 1e-6, "root-based max below sampled max"
+    np.testing.assert_allclose(exact, dense, rtol=2e-3)
+    want = jax.jit(jrf.max_vel_rate_exact)(jnp.asarray(c_xy[0].numpy()),
+                                           jnp.asarray(ts[0]))
+    np.testing.assert_allclose(exact, float(want), rtol=1e-9)

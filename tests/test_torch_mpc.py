@@ -638,3 +638,90 @@ def test_mpc_golden_control_sequence_parity_f64():
         output = gold
         t_now += 0.01
     assert worst < 1e-3, f"max control-sequence error {worst:.2e}"
+
+
+# ---------------------------------------------------------------------------
+# wheel-level actuation and teleoperation (sim/ackermann.py, sim/teleop.py)
+# ---------------------------------------------------------------------------
+
+def test_ackermann_wheel_mapping():
+    """tests/test_mpc.py:177 on the port, batched over the three commands,
+    and each field against the JAX package's (1e-12)."""
+    from uneven_planner_tpu.sim import ackermann as jak
+    from uneven_planner_tpu_torch.sim import ackermann as ak
+    v = np.array([0.02, 0.02, 0.02, -0.01, 0.2])
+    steer = np.array([0.3, 0.0, 0.3, -0.5, 2.0])
+    stale = np.array([False, False, True, False, False])
+    t = torch.tensor
+    wc = ak.wheel_commands(t(v), t(steer), t(stale))
+    # left turn (positive steer): left is the inside wheel
+    assert float(wc.rear_left[0]) < float(wc.rear_right[0])
+    assert float(wc.steer_left[0]) > float(wc.steer_right[0]) > 0
+    # straight
+    np.testing.assert_allclose(float(wc.rear_left[1]),
+                               float(wc.rear_right[1]))
+    assert float(wc.steer_left[1]) == 0.0
+    # dead-man zeroes everything
+    assert float(wc.rear_left[2]) == 0.0 and float(wc.steer_left[2]) == 0.0
+    want = jax.vmap(jak.wheel_commands)(jnp.asarray(v), jnp.asarray(steer),
+                                        jnp.asarray(stale))
+    for name in ak.WheelCommand._fields:
+        np.testing.assert_allclose(getattr(wc, name).numpy(),
+                                   np.asarray(getattr(want, name)), rtol=0,
+                                   atol=1e-12, err_msg=name)
+    # rear-axle pose offset (true_state_pub.py:49-53)
+    pose = ak.rear_axle_pose(t([1.0, 2.0, 0.0]))
+    np.testing.assert_allclose(pose.numpy(), [0.87, 2.0, 0.0], atol=1e-12)
+
+
+def test_teleop_state_machine_and_world_tf():
+    """tests/test_mpc.py:358 on the port: the key-state machine
+    (keyboard_control.py:30-84) and the world->base_footprint transform,
+    whose quaternion round-trips the terrain lift's rotation."""
+    from uneven_planner_tpu.config import MapConfig as JMapConfig
+    from uneven_planner_tpu.sim import ackermann as jak
+    from uneven_planner_tpu.terrain.synthetic import make_synthetic_grid \
+        as jax_hill_grid
+    from uneven_planner_tpu_torch.config import MapConfig
+    from uneven_planner_tpu_torch.sim import ackermann as ak
+    from uneven_planner_tpu_torch.sim import teleop
+    from uneven_planner_tpu_torch.terrain.grid import se3_lift
+    from uneven_planner_tpu_torch.terrain.synthetic import \
+        make_synthetic_grid
+
+    s = teleop.TeleopState()
+    assert teleop.command(s) is None           # nothing held -> no publish
+    s = teleop.key_down(s, "w")
+    assert teleop.command(s) == (1.0, 0.0)     # bang-bang forward
+    s = teleop.key_down(s, "a")
+    assert teleop.command(s) == (1.0, 0.5)
+    s = teleop.key_down(s, "s")                # opposite cancels forward
+    assert s.down and not s.up
+    assert teleop.command(s) == (-1.0, 0.5)
+    s = teleop.key_down(s, "d")
+    assert s.right and not s.left
+    assert teleop.command(s) == (-1.0, -0.5)
+    s = teleop.key_up(s, "s")
+    s = teleop.key_up(s, "d")
+    assert teleop.command(s) is None
+
+    kw = dict(xy_resolution=0.25, yaw_resolution=0.6)
+    grid = make_synthetic_grid(MapConfig(**kw), device="cpu")
+    pose = torch.tensor([[0.7, -0.4, 0.9], [-2.0, 1.5, -2.5]],
+                        dtype=torch.float64)
+    p, q = ak.world_tf(grid, pose)
+    R, p_ref = se3_lift(grid, pose)
+    np.testing.assert_allclose(p.numpy(), p_ref.numpy(), atol=1e-6)
+    for i in range(len(pose)):
+        x, y, z, w = q[i].tolist()
+        Rq = np.array([
+            [1 - 2*(y*y + z*z), 2*(x*y - z*w), 2*(x*z + y*w)],
+            [2*(x*y + z*w), 1 - 2*(x*x + z*z), 2*(y*z - x*w)],
+            [2*(x*z - y*w), 2*(y*z + x*w), 1 - 2*(x*x + y*y)],
+        ])
+        np.testing.assert_allclose(Rq, R[i].numpy(), atol=1e-5)
+    jg = jax_hill_grid(JMapConfig(**kw))
+    jp, jq = jax.jit(jax.vmap(lambda a: jak.world_tf(jg, a)))(
+        jnp.asarray(pose.numpy()))
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=0, atol=1e-12)

@@ -425,3 +425,127 @@ def test_bare_grid_cm_lookup_and_gradient_match_jax(grids):
         tgrid.get_terrain_variables_cm(tg, *map(torch.tensor,
                                                 (px, py, yaw))).numpy(),
         got.detach().numpy(), rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the split hi+lo bf16 table (grid.py:461-505, 611-620, 715-768)
+# ---------------------------------------------------------------------------
+
+def _with_split_bf16(jg, tg):
+    """Both grids with the split-bf16 table and no f16 table."""
+    return (jgrid.with_packed_table(jg).replace(data_packed16=None),
+            tgrid.with_packed_table(tg).replace(data_packed16=None))
+
+
+def test_packed_table_bits_match_jax(grids):
+    """The port's split-bf16 table holds the JAX package's bits, transposed
+    and with the cells ordered x fastest; the converter carries the JAX
+    table across unchanged."""
+    jg, tg = grids
+    jp, tp = _with_split_bf16(jg, tg)
+    nx, ny, nyaw = tg.voxel_num
+    jw = np.asarray(jp.data_packed).view(np.uint32)          # [12, Ncells]
+    words = tp.data_packed.numpy().view(np.uint32)
+    np.testing.assert_array_equal(words, tgrid.x_fastest(jw.T, (nx, ny, nyaw)))
+    x, y, w = nx - 2, ny - 1, nyaw - 1
+    np.testing.assert_array_equal(
+        words[tgrid.cell_row(x, y, w, tg.voxel_num)],
+        jw[:, (x * ny + y) * nyaw + w])
+    conv = port_grid(jg.replace(data_packed=jp.data_packed),
+                     tables_from_jax=True)
+    assert torch.equal(conv.data_packed, tp.data_packed)
+
+
+def test_packed_lookup_and_gradient_match_jax(grids):
+    """`get_terrain_variables_cm_packed` against the JAX function, forward
+    and reverse mode, on the edge, seam and out-of-map poses, and through
+    `get_terrain_variables_cm(exact=False)` when it is the fastest table."""
+    jp, tp = _with_split_bf16(*grids)
+    px, py, yaw = _poses(jp, seed=15)
+    ct = np.random.default_rng(16).normal(size=(7, px.size))
+
+    @jax.jit
+    def value_and_vjp(a, b, c, ct):
+        tv, vjp = jax.vjp(lambda *p: jgrid.get_terrain_variables_cm_packed(
+            jp, *p), a, b, c)
+        return tv, vjp(ct)
+    want, want_vjp = value_and_vjp(*map(jnp.asarray, (px, py, yaw, ct)))
+    ins = [torch.tensor(a, requires_grad=True) for a in (px, py, yaw)]
+    got = tgrid.get_terrain_variables_cm_packed(tp, *ins)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-12)
+    got_vjp = torch.autograd.grad((got * torch.tensor(ct)).sum(), ins)
+    for w, g in zip(want_vjp, got_vjp):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-10)
+    fast = tgrid.get_terrain_variables_cm(
+        tp, *(torch.tensor(a).reshape(20, 30) for a in (px, py, yaw)),
+        exact=False)
+    torch.testing.assert_close(fast.reshape(7, -1), got.detach(), rtol=0,
+                               atol=0)
+
+
+def test_packed_lookup_matches_exact_within_bf16(grids):
+    """tests/test_terrain.py:159 on the port: the split-bf16 lookup within
+    the hi+lo reconstruction error of the exact path (5e-5, float32),
+    including the clamped edges and the wrapped yaw seam."""
+    jg, _ = grids
+    g32 = port_grid(jg).replace(
+        data=torch.tensor(np.asarray(jg.data, np.float32)), data_pair=None,
+        data_packed16=None)
+    g = tgrid.with_packed_table(tgrid.with_pair_table(g32))
+    rng = np.random.default_rng(3)
+    M = 512
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
+    px = f32(rng.uniform(-4.95, 4.95, M))
+    py = f32(rng.uniform(-4.95, 4.95, M))
+    yaw = f32(rng.uniform(-np.pi, np.pi, M))
+    px[:8] = g.origin[0] + 0.01
+    py[8:16] = g.origin[1] + 0.01
+    px[16:24] = -g.origin[0] - 0.01
+    yaw[24:32] = np.pi - 1e-3
+    ex = tgrid.get_terrain_variables_cm(g, px, py, yaw, exact=True)
+    pk = tgrid.get_terrain_variables_cm(g, px, py, yaw, exact=False)
+    rel = (ex - pk).abs() / ex.abs().clamp(min=1.0)
+    assert float(rel.max()) < 5e-5, float(rel.max())
+
+
+def test_fast_table_precedence_matches_jax(grids):
+    """f16, then split-bf16, then pair, then the bare grid, in
+    `get_terrain_variables_cm(exact=False)` and `terrain_sigma_cm`
+    (grid.py:395-400, 787-793), each against the JAX package."""
+    jg, tg = grids
+    jboth = jgrid.with_packed_table(jg)
+    tboth = tgrid.with_packed_table(tg)
+    px, py, yaw = _poses(jg, M=300, seed=17)
+    J = tuple(jnp.asarray(a) for a in (px, py, yaw))
+    T = tuple(torch.tensor(a) for a in (px, py, yaw))
+    for drop in ({}, dict(data_packed16=None),
+                 dict(data_packed16=None, data_packed=None)):
+        j, t = jboth.replace(**drop), tboth.replace(**drop)
+        want, want_sigma = jax.jit(lambda *a: (
+            jgrid.get_terrain_variables_cm(j, *a, exact=False),
+            jgrid.terrain_sigma_cm(j, *a)))(*J)
+        got = tgrid.get_terrain_variables_cm(t, *T, exact=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(tgrid.terrain_sigma_cm(t, *T).numpy(),
+                                   np.asarray(want_sigma), rtol=0, atol=1e-12)
+
+
+def test_se3_lift(grids):
+    """tests/test_terrain.py:106 on the port: orthonormal lifts whose yaw
+    comes back, at the hill's height."""
+    from uneven_planner_tpu.terrain.synthetic import hill_height
+    _, tg = grids
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(-4.0, 4.0, size=(8, 2))
+    poses = np.concatenate([xy, rng.uniform(-np.pi, np.pi, size=(8, 1))], 1)
+    R, p3 = tgrid.se3_lift(tg, torch.tensor(poses))
+    R, p3 = R.numpy(), p3.numpy()
+    for i in range(len(poses)):
+        np.testing.assert_allclose(R[i].T @ R[i], np.eye(3), atol=1e-9)
+    yaws = tgrid.yaw_from_rotation(torch.tensor(R)).numpy()
+    np.testing.assert_allclose(yaws, poses[:, 2], atol=1e-9)
+    np.testing.assert_allclose(p3[:, 2], hill_height(poses[:, 0], poses[:, 1]),
+                               atol=3e-2)

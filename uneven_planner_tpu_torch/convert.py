@@ -2,11 +2,13 @@
 arrays (`np.asarray(jax_array)`), port tensors come out.
 
 For this system the "weights" are the terrain field with its gather tables
-and the solver state (boundaries, duals, scalings).  The JAX package keeps
-the tables channel-major ([8, Ncells] f32 pair table, [6, 2*Ncells] f32
-words of the f16 table); the port keeps them row-major with 32-byte rows,
-so conversion is a transpose (and an 8-word pad for the f16 table) with
-the bits unchanged.  Front-end paths, search results, trajectories, wire
+and the solver state (boundaries, duals, scalings, the nested solve's
+`SolveState`, an L-BFGS result).  The JAX package keeps the tables
+channel-major ([8, Ncells] f32 pair table, [6, 2*Ncells] f32 words of the
+f16 table, [12, Ncells] f32 words of the split-bf16 table); the port keeps
+them row-major (32-byte rows, 48-byte rows for the split-bf16 table), so
+conversion is a transpose (and an 8-word pad for the f16 table) with the
+bits unchanged.  Front-end paths, search results, trajectories, wire
 messages, QP data and solutions, the rollout carry and the tracking and
 pipeline results keep their layout; the port's carry a leading scenario
 dimension, which a single (un-vmapped) JAX result gets here.
@@ -24,7 +26,9 @@ from uneven_planner_tpu_torch.mpc.traj_msg import SE2TrajMsg
 from uneven_planner_tpu_torch.parallel.pipeline import PipelineResult
 from uneven_planner_tpu_torch.sim.rollout import RollState, TrackResult
 from uneven_planner_tpu_torch.solver.admm_qp import QPSolution
-from uneven_planner_tpu_torch.solver.alm import Boundary, DualState, Scaling
+from uneven_planner_tpu_torch.solver.alm import (Boundary, DualState,
+                                                 Scaling, SolveState)
+from uneven_planner_tpu_torch.solver.lbfgs import LBFGSResult
 from uneven_planner_tpu_torch.terrain import grid as tgrid
 
 
@@ -34,15 +38,16 @@ def _t(a, device):
 
 def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
                     origin, occ, occ_xy=None, gravity: float = 9.81,
-                    data_pair=None, data_packed16=None,
+                    data_pair=None, data_packed16=None, data_packed=None,
                     device=None) -> tgrid.TerrainGrid:
     """TerrainGrid from a numpy RXS2 field [Nx, Ny, Nyaw, 4], its geometry
-    and occupancy, with both gather tables.
+    and occupancy, with the pair and f16 gather tables.
 
     `data_pair` ([8, Ncells]) and `data_packed16` ([6, 2*Ncells], f32 or
     uint32 words) in the JAX package's layout are converted (transposed,
     and their cells reordered with x fastest) when given; a table not given
-    is built in the port."""
+    is built in the port.  The split-bf16 table `data_packed` ([12,
+    Ncells] words) is attached only when given."""
     dev = resolve_device(device)
     occ = np.asarray(occ)
     occ_xy = occ.any(axis=-1) if occ_xy is None else np.asarray(occ_xy)
@@ -65,6 +70,11 @@ def grid_from_numpy(data, *, xy_resolution: float, yaw_resolution: float,
             tgrid.x_fastest(packed, grid.voxel_num), dev))
     else:
         grid = tgrid.with_packed_f16(grid)
+    if data_packed is not None:
+        words = np.ascontiguousarray(np.asarray(data_packed)) \
+            .view(np.int32).T                            # [Ncells, 12]
+        grid = grid.replace(data_packed=_t(
+            tgrid.x_fastest(words, grid.voxel_num), dev))
     return grid
 
 
@@ -83,6 +93,30 @@ def duals_from_numpy(lam, mu, rho, device=None) -> DualState:
 def scaling_from_numpy(scale_fx, scale_cx, device=None) -> Scaling:
     dev = resolve_device(device)
     return Scaling(scale_fx=_t(scale_fx, dev), scale_cx=_t(scale_cx, dev))
+
+
+def solve_state_from_numpy(state, device=None) -> SolveState:
+    """The JAX package's SolveState of `vmap(init_state)` or of a
+    vmapped `outer_round` (numpy fields, duals a DualState) -> the port's,
+    with its int32 counters as int64."""
+    dev = resolve_device(device)
+    d = state.duals
+    count = lambda a: _t(a, dev).long()
+    return SolveState(
+        x=_t(state.x, dev), duals=duals_from_numpy(d.lam, d.mu, d.rho, dev),
+        it=count(state.it), done=_t(state.done, dev),
+        inner_iters=count(state.inner_iters), res_h=_t(state.res_h, dev),
+        res_g=_t(state.res_g, dev), lbfgs_status=count(state.lbfgs_status))
+
+
+def lbfgs_result_from_numpy(res, device=None) -> LBFGSResult:
+    """The JAX package's LBFGSResult (vmapped; numpy fields) -> the
+    port's, with its int32 counters as int64."""
+    dev = resolve_device(device)
+    return LBFGSResult(*[_t(getattr(res, f), dev).long()
+                         if f in ("status", "iters", "evals")
+                         else _t(getattr(res, f), dev)
+                         for f in LBFGSResult._fields[:6]])
 
 
 def _lanes(a, ndim: int, device) -> torch.Tensor:

@@ -47,13 +47,25 @@ class HeadlineConfig:
                 "max_iterations": self.max_iterations}
 
 
-def scene_setup(map_cfg: MapConfig | None = None, device=None):
-    """(SceneConfig, hill grid in float32 with the pair and f16 tables)."""
+# the fast tables `scene_setup` can attach beside the pair table
+# (bench.py:164-178, there the environment variable BENCH_TABLE)
+TABLES = {"f16": tgrid.with_packed_f16, "packed": tgrid.with_packed_table,
+          "pair": lambda grid: grid}
+
+
+def scene_setup(map_cfg: MapConfig | None = None, device=None,
+                table: str = "f16"):
+    """(SceneConfig, hill grid in float32 with the pair table and the fast
+    table `table`): "f16" the f16 table (2 six-word rows a lookup, field
+    error ~2.5e-4), "packed" the split-bf16 table (2 twelve-word rows,
+    <= 4e-6), "pair" none, so the solver iterates on the exact table."""
+    if table not in TABLES:
+        raise ValueError(f"table {table!r}: one of {', '.join(TABLES)}")
     cfg: SceneConfig = scene_config("hill")
     if map_cfg is not None:
         cfg = dataclasses.replace(cfg, map=map_cfg)
     grid = make_synthetic_grid(cfg.map, dtype=np.float32, device=device)
-    return cfg, tgrid.with_packed_f16(tgrid.with_pair_table(grid))
+    return cfg, TABLES[table](tgrid.with_pair_table(grid))
 
 
 def make_batch(B, cfg: SceneConfig, shape: alm.ProblemShape, rng,

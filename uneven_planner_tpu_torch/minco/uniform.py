@@ -199,6 +199,36 @@ def generate_norm_cm(inner: torch.Tensor, Tp: torch.Tensor,
     return torch.matmul(rT, gt)
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(N: int, dtype: torch.dtype, device: torch.device):
+    """(G [6N, N+5], jerk form [6, 6]) of N pieces as tensors."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return t(_solve_matrix(N)), t(_JERK_Q)
+
+
+def generate_norm(inner: torch.Tensor, Tp: torch.Tensor, head: torch.Tensor,
+                  tail: torch.Tensor, N: int) -> torch.Tensor:
+    """Normalized coefficients c_norm [B, N, 6, Dim] of N uniform pieces of
+    duration Tp [B] through `inner` [B, N-1, Dim] with boundary PVA rows
+    `head`/`tail` [B, 3, Dim] (uniform.py:126-139): `minco.generate(inner,
+    full(N, Tp), head, tail)` up to the rescale c[i,k] = c_norm[i,k]/Tp^k."""
+    G, _ = _constants(N, inner.dtype, inner.device)
+    scale = torch.stack([torch.ones_like(Tp), Tp, Tp * Tp], dim=1)[..., None]
+    r = torch.cat([inner, head * scale, tail * scale], dim=1)  # [B, N+5, Dim]
+    c = torch.matmul(G, r)                                     # [B, 6N, Dim]
+    return c.reshape(c.shape[0], N, 6, -1)
+
+
+def jerk_cost_norm(c_norm: torch.Tensor, Tp: torch.Tensor,
+                   N: int) -> torch.Tensor:
+    """Integral of squared jerk [B] over all pieces of c_norm [B, N, 6, Dim]:
+    (1/Tp^5) sum_i c_i^T Q c_i (uniform.py:168-175; equals `minco.jerk_cost`
+    of the denormalized coefficients, se2traj.hpp:697-710)."""
+    _, Q = _constants(N, c_norm.dtype, c_norm.device)
+    qc = torch.einsum("kl,bild->bikd", Q, c_norm)
+    return torch.sum(qc * c_norm, dim=(1, 2, 3)) / Tp ** 5
+
+
 def coeffs_from_cm(cT: torch.Tensor, N: int) -> torch.Tensor:
     """[B, Dim, 6N] channel-major -> [B, N, 6, Dim] (generate_norm layout)."""
     B, D = cT.shape[:2]

@@ -1,6 +1,6 @@
 """PHR Augmented-Lagrangian MINCO trajectory optimizer (port of
-`uneven_planner_tpu/solver/alm.py`: the flat solver and its compacted batch
-solve).
+`uneven_planner_tpu/solver/alm.py`: the reference's nested solve, the flat
+solver, and a compacted batch solve for each).
 
 Every function works on a batch of independent lanes: the decision vectors
 x [B, n], boundaries [B, 3, Dim], duals [B, E] / [B, I] / [B] and scalings
@@ -13,9 +13,16 @@ Decision vector x = [tau, inner_xy (Nxy-1 x 2 flattened), inner_yaw
 T_piece = expC2(tau)/N (alm_traj_opt.h:232-261).  The inner objective
 (alm_traj_opt.cpp:280-347, :663-991) is one differentiable sampling pass:
 constant MINCO matmuls, the terrain lookup (a CUDA kernel on the GPU), and
-the PHR penalties.  The ALM outer loop, L-BFGS and the Lewis-Overton line
-search are flattened into one loop whose step performs exactly one cost and
-gradient evaluation per lane; finished lanes keep their state.
+the PHR penalties.
+
+Two solvers, with the same semantics per lane:
+  - `solve`, the reference's own (alm_traj_opt.cpp:168-278): PHR outer
+    rounds around a full L-BFGS solve with the Lewis-Overton line search
+    (`lbfgs.minimize`), on the exact terrain table; lanes run in lockstep
+    at every level and finished lanes keep their state;
+  - `solve_flat`: the outer loop, L-BFGS and the line search flattened into
+    one loop whose step performs exactly one cost and gradient evaluation
+    per lane (on the fast table when the grid carries one).
 """
 
 from __future__ import annotations
@@ -140,13 +147,25 @@ def _coeffs_norm_cm(x, bound: Boundary, shape: ProblemShape):
     return cT_xy, Tp_xy, cT_yaw, Tp_yaw, T
 
 
+def _coeffs_norm(x, bound: Boundary, shape: ProblemShape):
+    """Normalized MINCO coefficients [B, N, 6, Dim] through the
+    constant-inverse fast path (alm.py:126-137)."""
+    tau, pxy, pyaw = unpack(x, shape)
+    T = expC2(tau)
+    Tp_xy = T / shape.piece_xy
+    Tp_yaw = T / shape.piece_yaw
+    cn_xy = uniform.generate_norm(pxy, Tp_xy, bound.head_xy, bound.tail_xy,
+                                  shape.piece_xy)
+    cn_yaw = uniform.generate_norm(pyaw, Tp_yaw, bound.head_yaw,
+                                   bound.tail_yaw, shape.piece_yaw)
+    return cn_xy, Tp_xy, cn_yaw, Tp_yaw, T
+
+
 def _coeffs(x, bound: Boundary, shape: ProblemShape):
     """Physical coefficients [B, N, 6, Dim] + piece-time vectors [B, N]."""
-    cT_xy, Tp_xy, cT_yaw, Tp_yaw, T = _coeffs_norm_cm(x, bound, shape)
-    c_xy = uniform.denormalize(
-        uniform.coeffs_from_cm(cT_xy, shape.piece_xy), Tp_xy)
-    c_yaw = uniform.denormalize(
-        uniform.coeffs_from_cm(cT_yaw, shape.piece_yaw), Tp_yaw)
+    cn_xy, Tp_xy, cn_yaw, Tp_yaw, T = _coeffs_norm(x, bound, shape)
+    c_xy = uniform.denormalize(cn_xy, Tp_xy)
+    c_yaw = uniform.denormalize(cn_yaw, Tp_yaw)
     B = x.shape[0]
     ts_xy = Tp_xy[:, None].expand(B, shape.piece_xy).contiguous()
     ts_yaw = Tp_yaw[:, None].expand(B, shape.piece_yaw).contiguous()
@@ -297,6 +316,13 @@ def inner_cost_aux(x, bound, shape, grid, cfg, duals: DualState,
     return jerk + user + cost_h + cost_g + time_cost, (h, g)
 
 
+def inner_cost(x, bound, shape, grid, cfg, duals: DualState,
+               scaling: Scaling, exact: bool = True):
+    """The L-BFGS objective [B] alone (alm.py:311-315)."""
+    return inner_cost_aux(x, bound, shape, grid, cfg, duals, scaling,
+                          exact)[0]
+
+
 # ---------------------------------------------------------------------------
 # initScaling (alm_traj_opt.cpp:349-661)
 # ---------------------------------------------------------------------------
@@ -354,10 +380,6 @@ def _make_scaling(x0, bound, shape, grid, cfg) -> Scaling:
         scale_cx=default_scale_cx(shape, cfg, B, x0.dtype, x0.device))
 
 
-# ---------------------------------------------------------------------------
-# Flattened single-loop solver
-# ---------------------------------------------------------------------------
-
 class ALMResult(NamedTuple):
     x: torch.Tensor
     traj: SE2Traj
@@ -371,8 +393,14 @@ class ALMResult(NamedTuple):
     evals: torch.Tensor | None = None
     # final multipliers/penalty per lane (return_duals=True)
     duals: DualState | None = None
-    # batched solver steps the call ran (each one terrain-kernel launch)
+    # batched cost+gradient evaluations the call ran (each one
+    # terrain-kernel launch), and host reads of a lane mask
     steps: int = 0
+    polls: int = 0
+
+
+# the fields of ALMResult that hold per-lane values
+_LANE_FIELDS = len(ALMResult._fields) - 2
 
 
 def lbfgs_params_from(cfg: ALMConfig) -> lbfgs.LBFGSParams:
@@ -391,6 +419,201 @@ def _params(cfg: ALMConfig, lbfgs_overrides: dict | None):
         p = dataclasses.replace(p, **lbfgs_overrides)
     return p
 
+
+def _traj(x, bound, shape) -> SE2Traj:
+    with torch.no_grad():
+        c_xy, ts_xy, c_yaw, ts_yaw, _ = _coeffs(x, bound, shape)
+    return SE2Traj(c_xy=c_xy, ts_xy=ts_xy, c_yaw=c_yaw, ts_yaw=ts_yaw)
+
+
+def _broadcast_warm_duals(warm_duals: DualState, B: int) -> DualState:
+    """Accept one prior DualState ([E]/[I]/scalar) or a per-lane batch
+    ([B,E]/[B,I]/[B]) and return the batched form."""
+    if warm_duals.lam.dim() == 1:
+        return DualState(lam=warm_duals.lam.expand(B, -1),
+                         mu=warm_duals.mu.expand(B, -1),
+                         rho=warm_duals.rho.reshape(()).expand(B))
+    return warm_duals
+
+
+def _duals0(B: int, shape: ProblemShape, cfg: ALMConfig, like,
+            warm_duals: DualState | None) -> DualState:
+    """Cold duals (zero multipliers, penalty cfg.rho), or warm ones."""
+    kw = dict(dtype=like.dtype, device=like.device)
+    if warm_duals is None:
+        return DualState(lam=torch.zeros((B, shape.equal_num), **kw),
+                         mu=torch.zeros((B, shape.non_equal_num), **kw),
+                         rho=torch.full((B,), cfg.rho, **kw))
+    return tree_map(lambda a: a.to(**kw).contiguous(),
+                    _broadcast_warm_duals(warm_duals, B))
+
+
+# torch.where with a [B] lane mask broadcast over old's trailing dimensions
+_where = lbfgs._where
+
+
+# ---------------------------------------------------------------------------
+# PHR-ALM outer loop around L-BFGS (alm_traj_opt.cpp:168-278)
+# ---------------------------------------------------------------------------
+
+class SolveState(NamedTuple):
+    """Resumable per-lane ALM state (one outer round at a time)."""
+    x: torch.Tensor             # [B, n]
+    duals: DualState
+    it: torch.Tensor            # [B] outer rounds taken
+    done: torch.Tensor          # [B] bool
+    inner_iters: torch.Tensor   # [B]
+    res_h: torch.Tensor         # [B]
+    res_g: torch.Tensor         # [B]
+    lbfgs_status: torch.Tensor  # [B]
+
+
+def init_state(x0, shape: ProblemShape, cfg: ALMConfig,
+               warm_duals: DualState | None = None) -> SolveState:
+    """The state before the first round: cold duals unless `warm_duals`
+    (one DualState, or one per lane)."""
+    B = x0.shape[0]
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    zero = torch.zeros((B,), dtype=torch.int64, device=x0.device)
+    return SolveState(
+        x=x0, duals=_duals0(B, shape, cfg, x0, warm_duals), it=zero,
+        done=torch.zeros((B,), dtype=torch.bool, device=x0.device),
+        inner_iters=zero.clone(),
+        res_h=torch.full((B,), float("inf"), **kw),
+        res_g=torch.full((B,), float("inf"), **kw),
+        lbfgs_status=zero.clone())
+
+
+def _cost_fun(bound, shape, grid, cfg, duals, scaling):
+    """x [B, n] -> (inner cost [B], its gradient [B, n]) on the exact
+    table: one terrain lookup with its Jacobian per call."""
+    def fun(x):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            f = inner_cost(xg, bound, shape, grid, cfg, duals, scaling)
+            g, = torch.autograd.grad(f.sum(), xg)
+        return f.detach(), g
+    return fun
+
+
+def outer_round(state: SolveState, bound: Boundary, scaling: Scaling,
+                shape: ProblemShape, grid, cfg: ALMConfig,
+                lb_params: lbfgs.LBFGSParams):
+    """One PHR-ALM outer round (L-BFGS inner solve + dual update +
+    convergence test) of every lane not done (alm.py:1156-1189); done lanes
+    keep their state.  Returns (state, LBFGSResult of the inner solve)."""
+    res = lbfgs.minimize(
+        _cost_fun(bound, shape, grid, cfg, state.duals, scaling), state.x,
+        lb_params, active=~state.done)
+    B = res.x.shape[0]
+    with torch.no_grad():
+        h_raw, g_raw = raw_constraints(res.x, bound, shape, grid, cfg)
+    h = h_raw * scaling.scale_cx[:, 0]
+    g = (g_raw * scaling.scale_cx[:, 1:7]).reshape(B, -1)
+    rho = state.duals.rho
+    lam = state.duals.lam + rho[:, None] * h
+    mu = torch.clamp(state.duals.mu + rho[:, None] * g, min=0.0)
+    rho_new = torch.clamp((1.0 + cfg.gamma) * rho, max=cfg.beta)
+    # judgeConvergence with the updated duals (alm_traj_opt.cpp:257-259)
+    res_h = torch.abs(h).amax(-1)
+    res_g = torch.maximum(g, -mu / rho_new[:, None]).amax(-1)
+    converged = torch.maximum(res_h, res_g) < cfg.epsilon_con
+    it = state.it + 1
+    new = SolveState(
+        x=res.x, duals=DualState(lam=lam, mu=mu, rho=rho_new), it=it,
+        done=converged | (it > cfg.max_iter),
+        inner_iters=state.inner_iters + res.iters, res_h=res_h, res_g=res_g,
+        lbfgs_status=res.status)
+    keep = state.done
+    return tree_map(lambda a, b: _where(keep, b, a), new, state), res
+
+
+def result_from_state(state: SolveState, bound: Boundary,
+                      shape: ProblemShape, cfg: ALMConfig, steps: int = 0,
+                      polls: int = 0) -> ALMResult:
+    """The ALMResult of a state; `converged` is recomputed from the
+    residuals, and `evals` stays None (alm.py:1192-1200)."""
+    converged = torch.maximum(state.res_h, state.res_g) < cfg.epsilon_con
+    return ALMResult(x=state.x, traj=_traj(state.x, bound, shape),
+                     converged=converged, outer_iters=state.it,
+                     inner_iters=state.inner_iters, res_h=state.res_h,
+                     res_g=state.res_g, lbfgs_status=state.lbfgs_status,
+                     steps=steps, polls=polls)
+
+
+def solve(x0, bound: Boundary, shape: ProblemShape, grid: tgrid.TerrainGrid,
+          cfg: ALMConfig, lbfgs_overrides: dict | None = None,
+          warm_duals: DualState | None = None) -> ALMResult:
+    """The reference's ALM solve of every lane of x0 [B, n] (the JAX
+    package's `vmap(solve)`, alm.py:418-500): PHR outer rounds, each a full
+    L-BFGS solve with the Lewis-Overton line search on the exact table,
+    every level in lockstep.  `warm_duals` (one DualState, or one per lane)
+    warm-starts the multipliers and the penalty."""
+    scaling = _make_scaling(x0, bound, shape, grid, cfg)
+    p = _params(cfg, lbfgs_overrides)
+    state = init_state(x0, shape, cfg, warm_duals)
+    steps = polls = 0
+    while True:
+        polls += 1
+        if bool(state.done.all()):
+            break
+        state, res = outer_round(state, bound, scaling, shape, grid, cfg, p)
+        steps += res.steps
+        polls += res.polls
+    return result_from_state(state, bound, shape, cfg, steps, polls)
+
+
+def _scatter_state(dst: SolveState, src: SolveState, idx) -> SolveState:
+    """dst with the lanes `idx` replaced by src's lanes (in order)."""
+    def put(d, s_):
+        d = d.clone()
+        d[idx] = s_
+        return d
+    return tree_map(put, dst, src)
+
+
+def solve_compacted(x0s, bounds: Boundary, shape: ProblemShape, grid,
+                    cfg: ALMConfig, lbfgs_overrides: dict | None = None,
+                    buckets=(1, 4, 16)) -> ALMResult:
+    """`solve` that retires finished lanes between outer rounds
+    (alm.py:1203-1275): each round runs the live lanes at the smallest
+    bucket width B // b that holds them, padded by repeating the first live
+    lane.  Per-lane results equal `solve`'s (same round sequence, no
+    cross-lane coupling).  The host reads the live lanes' done mask once
+    per round."""
+    B = x0s.shape[0]
+    dev = x0s.device
+    p = _params(cfg, lbfgs_overrides)
+    scalings = _make_scaling(x0s, bounds, shape, grid, cfg)
+    final = init_state(x0s, shape, cfg)
+    sizes = sorted({max(1, B // b) for b in buckets}, reverse=True)
+    idx = np.arange(B)
+    cur = (final, bounds, scalings)
+    steps = polls = 0
+    while len(idx) > 0:
+        n = len(idx)
+        size = min([s_ for s_ in sizes if s_ >= n], default=sizes[0])
+        if n < size:  # pad by repeating the first live lane
+            pad = lambda a: torch.cat(
+                [a, a[:1].expand((size - n,) + a.shape[1:])])
+            cur = tuple(tree_map(pad, t) for t in cur)
+        out, res = outer_round(cur[0], cur[1], cur[2], shape, grid, cfg, p)
+        steps += res.steps
+        polls += res.polls + 1
+        out = tree_map(lambda a: a[:n], out)
+        final = _scatter_state(final, out, torch.as_tensor(idx, device=dev))
+        still = ~out.done.cpu().numpy()
+        idx = idx[still]
+        keep = torch.as_tensor(np.nonzero(still)[0], device=dev)
+        cur = (tree_map(lambda a: a[keep], out),
+               tree_map(lambda a: a[:n][keep], cur[1]),
+               tree_map(lambda a: a[:n][keep], cur[2]))
+    return result_from_state(final, bounds, shape, cfg, steps, polls)
+
+
+# ---------------------------------------------------------------------------
+# Flattened single-loop solver
+# ---------------------------------------------------------------------------
 
 class _FlatState(NamedTuple):
     # current accepted iterate (+ its scaled constraints, cached for duals)
@@ -430,16 +653,6 @@ class _FlatState(NamedTuple):
     inner_iters: torch.Tensor
 
 
-def _broadcast_warm_duals(warm_duals: DualState, B: int) -> DualState:
-    """Accept one prior DualState ([E]/[I]/scalar) or a per-lane batch
-    ([B,E]/[B,I]/[B]) and return the batched form."""
-    if warm_duals.lam.dim() == 1:
-        return DualState(lam=warm_duals.lam.expand(B, -1),
-                         mu=warm_duals.mu.expand(B, -1),
-                         rho=warm_duals.rho.reshape(()).expand(B))
-    return warm_duals
-
-
 def flat_init(x0, shape: ProblemShape, cfg: ALMConfig, p: lbfgs.LBFGSParams,
               warm_duals: DualState | None = None) -> _FlatState:
     B, n = x0.shape
@@ -448,13 +661,6 @@ def flat_init(x0, shape: ProblemShape, cfg: ALMConfig, p: lbfgs.LBFGSParams,
     E, I = shape.equal_num, shape.non_equal_num
     m = p.mem_size
     npast = max(p.past, 1)
-    if warm_duals is None:
-        duals0 = DualState(lam=torch.zeros((B, E), **kw),
-                           mu=torch.zeros((B, I), **kw),
-                           rho=torch.full((B,), cfg.rho, **kw))
-    else:
-        duals0 = tree_map(lambda a: a.to(**kw).contiguous(),
-                          _broadcast_warm_duals(warm_duals, B))
     zeros = lambda *s: torch.zeros((B,) + s, **kw)
     false = torch.zeros((B,), dtype=torch.bool, device=x0.device)
     return _FlatState(
@@ -469,7 +675,7 @@ def flat_init(x0, shape: ProblemShape, cfg: ALMConfig, p: lbfgs.LBFGSParams,
         brackt=false, touched=false.clone(),
         ls_count=torch.zeros((B,), **ik),
         dgtest=zeros(), dstest=zeros(),
-        duals=duals0,
+        duals=_duals0(B, shape, cfg, x0, warm_duals),
         o_it=torch.zeros((B,), **ik),
         res_h=torch.full((B,), float("inf"), **kw),
         res_g=torch.full((B,), float("inf"), **kw),
@@ -478,15 +684,6 @@ def flat_init(x0, shape: ProblemShape, cfg: ALMConfig, p: lbfgs.LBFGSParams,
         done=false.clone(),
         evals=torch.zeros((B,), **ik),
         inner_iters=torch.zeros((B,), **ik))
-
-
-def _lanes(mask, like):
-    """[B] mask viewed to broadcast against a [B, ...] tensor."""
-    return mask.reshape(mask.shape + (1,) * (like.dim() - 1))
-
-
-def _where(mask, new, old):
-    return torch.where(_lanes(mask, old), new, old)
 
 
 def flat_step(s: _FlatState, bound: Boundary, scaling: Scaling,
@@ -693,6 +890,34 @@ def flat_run(state: _FlatState, bound: Boundary, scaling: Scaling,
     return state, steps
 
 
+def debug_iterates(x0, bound: Boundary, shape: ProblemShape, grid,
+                   cfg: ALMConfig, max_evals: int = 256,
+                   lbfgs_overrides: dict | None = None) -> dict:
+    """Optimization stepper (alm.py:847-879): the reference's `in_debug`
+    mode publishes the trajectory after every L-BFGS iteration
+    (alm_traj_opt.cpp:993-1017); this returns the same as tensors, one
+    flat-solver evaluation per row, `max_evals` rows per lane:
+      x      [B, max_evals, n]  iterate after each evaluation
+      f      [B, max_evals]     objective value
+      outer  [B, max_evals]     ALM outer-round index
+      inner  [B, max_evals]     L-BFGS iteration counter
+      valid  [B, max_evals]     False once the lane's solve had finished
+                                (its rows are then frozen)
+    The host reads nothing: every lane takes exactly `max_evals` steps."""
+    scaling = _make_scaling(x0, bound, shape, grid, cfg)
+    p = _params(cfg, lbfgs_overrides)
+    s = flat_init(x0, shape, cfg, p)
+    rows = []
+    for _ in range(max_evals):
+        new = flat_step(s, bound, scaling, shape, grid, cfg, p)
+        valid = ~s.done
+        s = tree_map(lambda a, b: _where(valid, a, b), new, s)
+        rows.append((s.x, s.f, s.o_it, s.inner_iters, valid))
+    xs, fs, outer, inner, valid = (torch.stack(r, dim=1) for r in zip(*rows))
+    return {"x": xs, "f": fs, "outer": outer, "inner": inner,
+            "valid": valid}
+
+
 def exact_residuals(x, duals: DualState, bound: Boundary,
                     shape: ProblemShape, grid, cfg: ALMConfig,
                     scaling: Scaling):
@@ -707,12 +932,6 @@ def exact_residuals(x, duals: DualState, bound: Boundary,
         res_h = torch.abs(h).amax(-1)
         res_g = torch.maximum(g, -duals.mu / duals.rho[:, None]).amax(-1)
     return res_h, res_g
-
-
-def _traj(x, bound, shape) -> SE2Traj:
-    with torch.no_grad():
-        c_xy, ts_xy, c_yaw, ts_yaw, _ = _coeffs(x, bound, shape)
-    return SE2Traj(c_xy=c_xy, ts_xy=ts_xy, c_yaw=c_yaw, ts_yaw=ts_yaw)
 
 
 def flat_result(out: _FlatState, bound: Boundary, shape: ProblemShape,
@@ -757,8 +976,9 @@ def _small(st: _FlatState, return_duals: bool) -> dict:
 def _cat_results(parts) -> ALMResult:
     out = [None if parts[0][i] is None else
            tree_map(lambda *a: torch.cat(a), *[r[i] for r in parts])
-           for i in range(len(ALMResult._fields) - 1)]
-    return ALMResult(*out, steps=sum(r.steps for r in parts))
+           for i in range(_LANE_FIELDS)]
+    return ALMResult(*out, steps=sum(r.steps for r in parts),
+                     polls=sum(r.polls for r in parts))
 
 
 def _set_lanes(full: ALMResult, ii, part: ALMResult) -> ALMResult:
@@ -767,8 +987,9 @@ def _set_lanes(full: ALMResult, ii, part: ALMResult) -> ALMResult:
         a[ii] = b
         return a
     out = [None if full[i] is None else tree_map(put, full[i], part[i])
-           for i in range(len(ALMResult._fields) - 1)]
-    return ALMResult(*out, steps=full.steps + part.steps)
+           for i in range(_LANE_FIELDS)]
+    return ALMResult(*out, steps=full.steps + part.steps,
+                     polls=full.polls + part.polls)
 
 
 def solve_flat_compacted(x0s, bounds, shape: ProblemShape, grid,
@@ -827,7 +1048,8 @@ def solve_flat_compacted(x0s, bounds, shape: ProblemShape, grid,
     ii = torch.as_tensor(bad[:nb], device=x0s.device)
     redo_trim = ALMResult(*[None if v is None else
                             tree_map(lambda a: a[:nb], v)
-                            for v in redo[:-1]], steps=redo.steps)
+                            for v in redo[:_LANE_FIELDS]], steps=redo.steps,
+                          polls=redo.polls)
     return _set_lanes(res, ii, redo_trim)
 
 

@@ -18,18 +18,26 @@ rows so that one lookup corner is one DRAM sector on the GPU:
                  rows Ncells + i hold the f16 residuals; words 6-7 are zero
                  padding.  Words 0-5 are the JAX package's `data_packed16`
                  bits, transposed and reordered with x fastest.
+  data_packed    [Ncells, 12] int32, the split hi+lo bf16 table: words 0-5
+                 of the row of cell (x, y, w) pack the bf16 of {sigma, zb0,
+                 zb1} x {y, y+1} as pairs (yaw w high, w+1 low), words 6-11
+                 the bf16 of the residuals; the JAX package's `data_packed`
+                 bits, transposed and reordered with x fastest.
 
-Both tables order their cells with x fastest: cell (x, y, w) is row
+The tables order their cells with x fastest: cell (x, y, w) is row
 (y * Nyaw + w) * Nx + x (`cell_row`) of its half, so the two x corners of a
 lookup are neighbouring rows; `x_fastest` reorders a table from the JAX
 package's (x, y, w) order.
 
-Each lookup has a hand-written CUDA kernel (`csrc/terrain_lookup.cu`) and a
-plain PyTorch twin here that computes the same pair (tv, J): the 7 terrain
-variables and their local Jacobian in (px, py, yaw), J written out
-analytically.  One `torch.autograd.Function` wraps whichever runs: the twin
-for CPU tensors, the kernel for CUDA tensors (or an error; never a quiet
-fallback).  Its backward and forward-mode products are formed from J.
+The lookups of the pair and f16 tables each have a hand-written CUDA kernel
+(`csrc/terrain_lookup.cu`) and a plain PyTorch twin here that computes the
+same pair (tv, J): the 7 terrain variables and their local Jacobian in
+(px, py, yaw), J written out analytically.  One `torch.autograd.Function`
+wraps whichever runs: the twin for CPU tensors, the kernel for CUDA tensors
+(or an error; never a quiet fallback).  Its backward and forward-mode
+products are formed from J.  The split-bf16 lookup reads its two 48-byte
+rows through the gather kernel K3 and blends them as tensor operations,
+differentiated by autograd.
 
 The front end's reads (occupancy, the bare-grid sigma corners, the RXS2 rows
 of `get_terrain_batch`) are plain table reads by index; they go through the
@@ -87,6 +95,7 @@ class TerrainGrid:
     occ_xy: torch.Tensor
     data_pair: torch.Tensor | None = None
     data_packed16: torch.Tensor | None = None
+    data_packed: torch.Tensor | None = None
     xy_resolution: float = 0.05
     yaw_resolution: float = 0.1
     origin: Tuple[float, float, float] = (-5.0, -5.0, -(math.pi + 2.5e-2))
@@ -185,6 +194,49 @@ def with_packed_f16(grid: TerrainGrid) -> TerrainGrid:
     return grid.replace(data_packed16=x_fastest(packed, grid.voxel_num))
 
 
+def _bf16_round_bits(u32: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest-even float32 bit patterns (int64 holding the 32
+    unsigned bits) -> the upper-16 bf16 bits (grid.py:461-466)."""
+    return (u32 + 0x7FFF + ((u32 >> 16) & 1)) >> 16
+
+
+def _f32_bits(a: torch.Tensor) -> torch.Tensor:
+    """float32 tensor -> its 32 bits as a non-negative int64."""
+    return a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def with_packed_table(grid: TerrainGrid) -> TerrainGrid:
+    """Attach the split hi+lo bf16 (y, yaw)-pair table [Ncells, 12] int32
+    (grid.py:469-505, row-major, cells x fastest):
+      word[2*ch + yy]     = hi(v[ch, y+yy, w]) << 16 | hi(v[ch, y+yy, w+1])
+      word[6 + 2*ch + yy] = lo(v[ch, y+yy, w]) << 16 | lo(v[ch, y+yy, w+1])
+    for ch in (sigma, zb0, zb1), yy in (0, 1); y+1 clipped, w+1 wrapped.
+    hi is the RNE bf16 of the float32 value, lo the RNE bf16 of the
+    residual, so hi + lo is the value within ~4e-6 relative."""
+    nx, ny, nyaw = grid.voxel_num
+    d = grid.data[..., 1:4].to(torch.float32)
+    dw1 = torch.roll(d, -1, dims=2)
+    ynext = torch.clamp(torch.arange(ny, device=d.device) + 1, max=ny - 1)
+    dy1 = d[:, ynext]
+    dy1w1 = torch.roll(dy1, -1, dims=2)
+    corners = (d, dw1, dy1, dy1w1)
+    hi_bits = [_bf16_round_bits(_f32_bits(a)) for a in corners]
+    hi_vals = [((b << 16) & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
+               for b in hi_bits]
+    lo_bits = [_bf16_round_bits(_f32_bits(a - hv))
+               for a, hv in zip(corners, hi_vals)]
+    words = []
+    for part in (hi_bits, lo_bits):
+        for ch in range(3):
+            for yy in range(2):
+                w0, w1 = part[2 * yy][..., ch], part[2 * yy + 1][..., ch]
+                words.append(((w0 << 16) & 0xFFFFFFFF) | w1)
+    packed = torch.stack(words, dim=-1).reshape(nx * ny * nyaw, 12)
+    packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+    return grid.replace(data_packed=x_fastest(packed.to(torch.int32),
+                                              grid.voxel_num))
+
+
 def x_fastest(rows, voxel_num):
     """Rows of a table [h*Ncells, k] (tensor or numpy array; h halves of
     Ncells rows each, h = 2 for the packed table's hi and residual
@@ -215,6 +267,19 @@ def _unpack_f16_pair(words: torch.Tensor):
     """int32 words -> (value at yaw w, value at yaw w+1) in float32
     (grid.py:548-554)."""
     return _u16_to_f32((words >> 16) & 0xFFFF), _u16_to_f32(words & 0xFFFF)
+
+
+def _u16_bf16_to_f32(bits: torch.Tensor) -> torch.Tensor:
+    """Non-negative int32 holding 16 bf16 bits -> float32 value (exact)."""
+    signed = torch.where(bits >= 0x8000, bits - 0x10000, bits)
+    return signed.to(torch.int16).view(torch.bfloat16).to(torch.float32)
+
+
+def _unpack_bf16_pair(words: torch.Tensor):
+    """int32 words -> (high half, low half) as float32 values: the values
+    at yaw w and at w+1 (grid.py:611-618)."""
+    return (_u16_bf16_to_f32((words >> 16) & 0xFFFF),
+            _u16_bf16_to_f32(words & 0xFFFF))
 
 
 def kernel_geometry(grid: TerrainGrid) -> tuple:
@@ -483,17 +548,54 @@ def get_terrain_variables_cm_packed16(grid: TerrainGrid, px, py, yaw,
     return _terrain_tv(_runner(grid, "packed16", exact), px, py, yaw)
 
 
+def get_terrain_variables_cm_packed(grid: TerrainGrid, px, py,
+                                    yaw) -> torch.Tensor:
+    """Channel-major terrain variables [7, ...] via the split hi+lo bf16
+    table (grid.py:715-768; yaw pre-normalized into [-pi, pi)): the two
+    x-corner rows of 12 words through K3, then hi + lo, the yaw, y and x
+    blends and the 7-tuple tail as tensor operations, differentiable in px,
+    py and yaw by autograd.  Within ~4e-6 relative of the exact path on the
+    stored field."""
+    if grid.data_packed is None:
+        raise ValueError("grid has no split-bf16 table (with_packed_table)")
+    shape = px.shape
+    px, py, yaw = (t.reshape(-1) for t in (px, py, yaw))
+    M = px.shape[0]
+    # low-y edge: the pair at row 0 is (0, 1) where the exact path clamps
+    # both y corners to row 0, so the blend weight is zeroed (`_cell`)
+    k = _cell(grid, px, py, yaw, low_y_rule=True, to_index=_to_index32)
+    rows = torch.stack([cell_row(k["ix0"], k["iy0"], k["iw"], grid.voxel_num),
+                        cell_row(k["ix1"], k["iy0"], k["iw"],
+                                 grid.voxel_num)])           # [2x, M]
+    words = gather_rows(grid.data_packed, rows.reshape(-1)).reshape(2, M, 12)
+    v_w0, v_w1 = _unpack_bf16_pair(words)                   # at w, w+1
+    # hi + lo residual, in float32 as the table's values
+    v_w0 = (v_w0[..., :6] + v_w0[..., 6:]).to(px.dtype)     # [2x, M, 6]
+    v_w1 = (v_w1[..., :6] + v_w1[..., 6:]).to(px.dtype)
+    wx, wy, wt = (k[n][:, None] for n in ("wx", "wy", "wt"))
+    vw = v_w0 * (1.0 - wt) + v_w1 * wt                      # yaw blend
+    # columns [2*ch + yy]: the y blend, then the x blend
+    vy = vw[..., 0::2] * (1.0 - wy) + vw[..., 1::2] * wy    # [2x, M, 3]
+    val = vy[0] * (1.0 - wx) + vy[1] * wx                   # [M, 3]
+    val = torch.where(k["inside"][:, None], val, 0.0)
+    tv = _tv_from_fields(val[:, 0], val[:, 1], val[:, 2], yaw)
+    return tv.reshape((7,) + tuple(shape))
+
+
 def get_terrain_variables_cm(grid: TerrainGrid, px, py, yaw,
                              exact: bool = True) -> torch.Tensor:
     """Channel-major batched terrain variables [7, ...] from coordinate
     tensors of one shape (yaw pre-normalized into [-pi, pi)).
 
-    exact=False with the f16 table attached takes the 2-row packed path
-    (grid.py:789-790); otherwise the exact 4-row pair-table path, and on a
-    bare grid (no table) `get_terrain_variables_batch`, the 8 corner rows
-    through K3, differentiable in px, py and yaw by autograd."""
+    exact=False takes the cheapest fast table attached (grid.py:787-790):
+    the f16 table's 2-row path, else the split-bf16 table's; otherwise the
+    exact 4-row pair-table path, and on a bare grid (no table)
+    `get_terrain_variables_batch`, the 8 corner rows through K3,
+    differentiable in px, py and yaw by autograd."""
     if not exact and grid.data_packed16 is not None:
         return get_terrain_variables_cm_packed16(grid, px, py, yaw)
+    if not exact and grid.data_packed is not None:
+        return get_terrain_variables_cm_packed(grid, px, py, yaw)
     if grid.data_pair is None:                  # a bare grid (grid.py:791-793)
         poses = torch.stack([px, py, yaw], dim=-1).reshape(-1, 3)
         return get_terrain_variables_batch(grid, poses).T.reshape(
@@ -585,10 +687,12 @@ def terrain_sigma_cm(grid: TerrainGrid, px, py, yaw) -> torch.Tensor:
     """Interpolated sigma at coordinate tensors of one shape (yaw normalized
     into [-pi, pi)): the flatness term of the front end's g-score
     (kino_astar.cpp:187-195).  Reads the f16 table when attached (kernel
-    K1), else the pair table (K2), else the 8 corners of the bare grid
-    (K3)."""
+    K1), else the split-bf16 table (K3), else the pair table (K2), else
+    the 8 corners of the bare grid (K3)."""
     if grid.data_packed16 is not None:
         return get_terrain_variables_cm_packed16(grid, px, py, yaw)[6]
+    if grid.data_packed is not None:
+        return get_terrain_variables_cm_packed(grid, px, py, yaw)[6]
     if grid.data_pair is not None:
         return get_terrain_variables_cm(grid, px, py, yaw)[6]
     nyaw = grid.voxel_num[2]
