@@ -81,9 +81,9 @@ EDITS = {
              "                       (Idx)(2 * g.ncells - 1));",
              "  return Idx(0);")],
         "adjacent_rows": [(
-            "    const Idx row = packed_row<Idx>(g, cx ? c.ix1 : c.ix0, c.iy0,"
-            " c.iw);",
-            "    const Idx row = (packed_row<Idx>(g, c.ix0, c.iy0, c.iw) &"
+            "    const Idx row = packed_row<T, Idx>(g, cx ? c.ix1 : c.ix0,"
+            " c.iy0, c.iw);",
+            "    const Idx row = (packed_row<T, Idx>(g, c.ix0, c.iy0, c.iw) &"
             " ~Idx(1)) + cx;", 2)],
         "block256": [("constexpr int kK1Block = 128;",
                       "constexpr int kK1Block = 256;")],
@@ -101,11 +101,12 @@ EDITS = {
              "      if (JAC || (r & 3) == q) __stcs(tv + (long long)r * M + i,"
              " t[r]);")],
         "no_tail": [
-            ("  a.c = sqrtf(floor_at(a.q, 1e-12f));\n  a.inv_c = 1.f / a.c;\n"
-             "  a.cy = cosf(yaw);\n  a.sy = sinf(yaw);",
+            ("  a.c = sqrt_(floor_at(a.q, Num<T>::tiny));\n"
+             "  a.inv_c = T(1) / a.c;\n  a.cy = cos_(yaw);\n"
+             "  a.sy = sin_(yaw);",
              "  a.c = a.q;\n  a.inv_c = a.c;\n  a.cy = yaw;\n  a.sy = yaw;"),
-            ("  a.sq = sqrtf(floor_at(a.p, 1e-12f));\n"
-             "  a.inv_sq = 1.f / a.sq;",
+            ("  a.sq = sqrt_(floor_at(a.p, Num<T>::tiny));\n"
+             "  a.inv_sq = T(1) / a.sq;",
              "  a.sq = a.p;\n  a.inv_sq = a.sq;"),
             ("-(a.zb0 * dzb0 + a.zb1 * dzb1) / a.c",
              "-(a.zb0 * dzb0 + a.zb1 * dzb1) * a.c"),

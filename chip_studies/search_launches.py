@@ -61,7 +61,12 @@ def main():
         res = search()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    total, rows = cs.device_time_by_kernel(prof)
+    try:        # older checkouts keep the summary in chip_smoke.py
+        from uneven_planner_tpu_torch.utils.profiling import \
+            device_time_by_kernel
+    except ImportError:
+        device_time_by_kernel = cs.device_time_by_kernel
+    total, rows = device_time_by_kernel(prof)
     rounds = int(res.rounds.max())
     poll = kino_init.POLL_EVERY
     rounds_run = min(cfg.frontend.max_rounds, -(-rounds // poll) * poll)

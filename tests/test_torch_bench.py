@@ -1,0 +1,443 @@
+"""Port parity: the bench harnesses (`bench/tracking_benchmark.py`,
+`precision_study.py`, `scaling.py`, `scene_eval.py`) and the helpers
+`utils/profiling.py` and `utils/vis.py` against the JAX package's
+(tests/test_benchmark.py, test_scene_eval.py, test_vis.py), on the CPU."""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uneven_planner_tpu.bench import scene_eval as jscene
+from uneven_planner_tpu.bench import tracking_benchmark as jtb
+from uneven_planner_tpu.config import MPCConfig as JMPCConfig
+from uneven_planner_tpu.config import MapConfig as JMapConfig
+from uneven_planner_tpu.config import scene_config as jscene_config
+from uneven_planner_tpu.frontend import kino_init as jkino
+from uneven_planner_tpu.minco import minco as jminco
+from uneven_planner_tpu.minco.traj import SE2Traj as JSE2Traj
+from uneven_planner_tpu.terrain.synthetic import \
+    make_synthetic_grid as jax_hill_grid
+from uneven_planner_tpu.utils import profiling as jprofiling
+from uneven_planner_tpu.utils import vis as jvis
+from uneven_planner_tpu_torch import api, convert
+from uneven_planner_tpu_torch.bench import precision_study, scaling
+from uneven_planner_tpu_torch.bench import scene_eval
+from uneven_planner_tpu_torch.bench import tracking_benchmark as tb
+from uneven_planner_tpu_torch.config import MapConfig, MPCConfig, scene_config
+from uneven_planner_tpu_torch.frontend import kino_init
+from uneven_planner_tpu_torch.terrain.synthetic import make_synthetic_grid
+from uneven_planner_tpu_torch.utils import profiling, vis
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """Thousands of small tensor operations: one thread (the suite's
+    workers would oversubscribe the cores), then the setting back."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _mk_traj(length=1.2, vel=0.4, N=4):
+    """tests/test_benchmark.py's straight trajectory (JAX package)."""
+    dur = length / vel
+    xs = np.linspace(0.0, length, N + 1)
+    inner = jnp.asarray(np.stack([xs[1:-1], np.zeros(N - 1)], axis=1))
+    ts = jnp.full((N,), dur / N)
+    z = jnp.zeros((1, 2))
+    head = jnp.concatenate([jnp.asarray([[0.0, 0.0]]), z, z])
+    tail = jnp.concatenate([jnp.asarray([[length, 0.0]]), z, z])
+    c_xy = jminco.generate(inner, ts, head, tail)
+    c_yaw = jminco.generate(jnp.zeros((N - 1, 1)), ts, jnp.zeros((3, 1)),
+                            jnp.zeros((3, 1)))
+    return JSE2Traj(c_xy, ts, c_yaw, ts)
+
+
+# ---------------------------------------------------------------------------
+# tracking benchmark
+# ---------------------------------------------------------------------------
+
+def test_proposed_format_roundtrip_matches_jax(tmp_path):
+    """tests/test_benchmark.py:27: the port writes the file the JAX package
+    writes for the same trajectories, and loads back the JAX loader's
+    coefficients."""
+    trajs = [_mk_traj(), _mk_traj(length=0.9)]
+    jpath = str(tmp_path / "j_proposed.txt")
+    tpath = str(tmp_path / "t_proposed.txt")
+    jtb.save_proposed_file(jpath, trajs)
+    tb.save_proposed_file(tpath, [convert.traj_from_numpy(
+        jax.tree.map(np.asarray, t), device=CPU) for t in trajs])
+    want = np.loadtxt(jpath)
+    np.testing.assert_allclose(np.loadtxt(tpath), want, rtol=0, atol=1e-12)
+    kind, loaded = tb.load_benchmark_file(jpath, torch.float64, CPU)
+    _, jloaded = jtb.load_benchmark_file(jpath)
+    assert kind == "proposed" and len(loaded) == 2
+    for orig, back, jback in zip(trajs, loaded, jloaded):
+        np.testing.assert_allclose(back.c_xy[0].numpy(),
+                                   np.asarray(orig.c_xy), atol=1e-9)
+        for k in ("c_xy", "c_yaw", "ts_xy", "ts_yaw"):
+            np.testing.assert_allclose(getattr(back, k)[0].numpy(),
+                                       np.asarray(getattr(jback, k)),
+                                       rtol=0, atol=1e-12)
+
+
+def test_wangs_and_jians_loaders_match_jax(tmp_path):
+    """tests/test_benchmark.py:39: both other formats, their states and
+    reference horizons against the JAX functions'."""
+    row = ["2"]
+    for piece in range(2):
+        cmat = np.zeros((3, 6))
+        cmat[0, 4] = 1.0           # x = t (descending: t^5 .. 1)
+        cmat[0, 5] = float(piece)
+        cmat[1, 3] = 0.1 * (piece + 1)
+        row += ["1.0"] + [str(v) for v in cmat.reshape(-1)]
+    wf = str(tmp_path / "trajs_Wangs.txt")
+    open(wf, "w").write(" ".join(row) + "\n")
+    kind, ws = tb.load_benchmark_file(wf, torch.float64, CPU)
+    _, jws = jtb.load_benchmark_file(wf)
+    assert kind == "Wangs"
+    for t in (0.0, 0.4, 1.5, 2.0):
+        pos, vel = tb._poly3_state(ws[0], t)
+        jpos, jvel = jtb._poly3_state(jws[0], jnp.asarray(t))
+        np.testing.assert_allclose(pos.numpy(), np.asarray(jpos), atol=1e-12)
+        np.testing.assert_allclose(vel.numpy(), np.asarray(jvel), atol=1e-12)
+    cfg, jcfg = MPCConfig(), JMPCConfig()
+    t_now = torch.tensor([0.3, 1.9, 3.5], dtype=torch.float64)
+    for kind_, trajs, jtrajs, path in (
+            ("Wangs", ws, jws, None),
+            ("Jians", None, None, str(tmp_path / "trajs_Jians.txt"))):
+        if kind_ == "Jians":
+            pts = [(0.1 * k, 0.05 * k, 0.01 * k) for k in range(5)]
+            open(path, "w").write("5 0.5 " + " ".join(
+                f"{x} {y} {th}" for x, y, th in pts) + "\n")
+            kind, trajs = tb.load_benchmark_file(path, torch.float64, CPU)
+            _, jtrajs = jtb.load_benchmark_file(path)
+            assert kind == "Jians" and trajs[0].points.shape == (5, 3)
+        refs, at_goal = tb.ref_points_for(kind_, trajs[0], t_now, cfg)
+        for b, t in enumerate(t_now.tolist()):
+            jrefs, jgoal = jtb.ref_points_for(kind_, jtrajs[0],
+                                              jnp.asarray(t), jcfg)
+            np.testing.assert_allclose(refs[b].numpy(), np.asarray(jrefs),
+                                       atol=1e-12)
+            assert bool(at_goal[b]) == bool(jgoal)
+
+
+def test_episode_loop_matches_jax(tmp_path):
+    """tests/test_benchmark.py:73 at a cut episode (60 ticks): the port's
+    episode error within 1e-6 of the JAX function's on the same file in
+    float64, the same tick count, and the err file in the reference's
+    format."""
+    path = str(tmp_path / "trajs_proposed.txt")
+    jtb.save_proposed_file(path, [_mk_traj(length=0.8)])
+    jcfg = dataclasses.replace(JMPCConfig(), qp_max_iter=600)
+    cfg = dataclasses.replace(MPCConfig(), qp_max_iter=600)
+    jres, jtotal = jtb.run_benchmark(path, jcfg, max_sqp_iter=1,
+                                     max_steps=60)
+    out = str(tmp_path / "err_trajs.txt")
+    res, total = tb.run_benchmark(path, cfg, out_path=out, max_sqp_iter=1,
+                                  max_steps=60, dtype=torch.float64,
+                                  device=CPU)
+    assert len(res) == 1 and res[0].steps == jres[0].steps == 60
+    assert abs(res[0].mean_err - jres[0].mean_err) < 1e-6, (res, jres)
+    assert res[0].mean_err < 0.05
+    lines = open(out).read().strip().splitlines()
+    assert lines[-1].startswith("all_mean_track_err:")
+    assert abs(float(lines[-1].split(":")[1]) - total) < 1e-9
+    assert abs(total - jtotal) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# precision study, scaling
+# ---------------------------------------------------------------------------
+
+# the keys of the JAX study's record (uneven_planner_tpu/bench/
+# precision_study.py:88-109)
+JAX_STUDY_KEYS = {"batch", "conv_f32", "conv_f64", "conv_agree",
+                  "res_h_f32_max", "res_h_f64_max", "res_g_f32_max",
+                  "res_g_f64_max", "jerk_rel_gap_p50", "jerk_rel_gap_max",
+                  "x_gap_p50"}
+
+
+def test_precision_study_matches_jax(monkeypatch):
+    """The port's study against the JAX study on the same coarse hill, the
+    same seed, B = 2 and the same small shape, both on the CPU.  The
+    scenarios are the JAX study's draws exactly (x0 and every boundary
+    field); the float64 CPU block agrees to 1e-6 relative (the two
+    packages' float64 solves agree to ~1e-8); the float32 block, which
+    each package computes in its own operation order, has the same
+    converged shares, residuals under the ALM tolerance on both sides and
+    float32-against-float64 gaps of the same small scale.  The port's
+    float64-against-float64 block agrees to the bit on one device."""
+    import uneven_planner_tpu.config as jconfig
+    from uneven_planner_tpu import manager as jmanager
+    from uneven_planner_tpu.bench import precision_study as jps
+    from uneven_planner_tpu_torch import headline
+
+    coarse = dict(xy_resolution=0.25, yaw_resolution=0.45)
+    jscene_cfg = jconfig.scene_config
+    monkeypatch.setattr(jconfig, "scene_config", lambda name: dataclasses
+                        .replace(jscene_cfg(name), map=JMapConfig(**coarse)))
+    jdraws, tdraws = [], []
+
+    def recorded(fn, into):
+        def call(*a, **k):
+            into.append(fn(*a, **k))
+            return into[-1]
+        return call
+    monkeypatch.setattr(jmanager, "init_guess_fixed",
+                        recorded(jmanager.init_guess_fixed, jdraws))
+    monkeypatch.setattr(headline, "make_batch",
+                        recorded(headline.make_batch, tdraws))
+    shape = dict(B=2, piece_xy=4, piece_yaw=8, int_K=8)
+    want = jps.run_study(**shape)
+    out = precision_study.run_study(
+        **shape, device="cpu", map_cfg=MapConfig(**coarse),
+        overrides={"mem_size": 16, "max_iterations": 30})
+    json.dumps(out)
+    assert JAX_STUDY_KEYS <= set(out) and set(want) == JAX_STUDY_KEYS
+    x0s, bounds, _ = tdraws[0]
+    np.testing.assert_array_equal(
+        x0s.numpy(), np.stack([np.asarray(d[0]) for d in jdraws]))
+    for f, b in zip(jdraws[0][1]._fields, bounds):
+        np.testing.assert_array_equal(
+            b.numpy(), np.stack([np.asarray(getattr(d[1], f))
+                                 for d in jdraws]))
+    assert out["batch"] == want["batch"] == 2
+    for k in ("conv_f32", "conv_f64", "conv_agree"):
+        assert out[k] == want[k] == 1.0, (k, out, want)
+    for k in ("res_h_f64_max", "res_g_f64_max"):
+        np.testing.assert_allclose(out[k], want[k], rtol=1e-6)
+    tol = scene_config("hill").alm.epsilon_con
+    for k in ("res_h_f32_max", "res_g_f32_max"):
+        assert max(out[k], want[k]) < tol, (k, out, want)
+    # float32 against float64: the same small scale in both packages
+    for k, lim in (("x_gap_p50", 1e-3), ("jerk_rel_gap_max", 1e-2)):
+        assert 0.0 < out[k] < lim and 0.0 < want[k] < lim, (k, out, want)
+    f64 = out["f64_card"]
+    assert f64["conv_agree"] == 1.0 and f64["x_gap_max"] == 0.0
+
+
+def test_scaling_sweeps_run_on_cpu_shards():
+    """`run_mesh` over 1 and 2 CPU shards and `run_multiprocess` with one
+    gloo process, on a small problem: one point a size, efficiency 1 at
+    one."""
+    small = dict(shape=(4, 8, 8), overrides={"mem_size": 4,
+                                             "max_iterations": 5})
+    pts = scaling.run_mesh(["cpu", "cpu"], batch=2,
+                           map_cfg=MapConfig(xy_resolution=0.4,
+                                             yaw_resolution=1.1), **small)
+    assert [p["devices"] for p in pts] == [1, 2]
+    assert pts[0]["efficiency"] == 1.0 and pts[1]["solves_per_sec"] > 0
+    mp = scaling.run_multiprocess(1, 1, 2, map_res=(0.4, 1.1),
+                                  timeout=300.0, **small)
+    assert len(mp) == 1 and mp[0]["efficiency"] == 1.0
+    assert mp[0]["backend"] == "gloo" and 0 <= mp[0]["converged"] <= 2
+
+
+# ---------------------------------------------------------------------------
+# scene evaluation
+# ---------------------------------------------------------------------------
+
+def test_sample_free_scenarios_match_jax():
+    """tests/test_scene_eval.py:48: the border keep-out follows the map's
+    origin and extent, and one seed gives both packages the same
+    scenarios, on an open map and on the hill's occupancy."""
+    class C:
+        xy_resolution = 0.25
+        map_origin = (0.0, 10.0, -np.pi)
+
+    occ = np.zeros((32, 32), bool)
+    kw = dict(d_min=0.5, d_max=1.5, border_margin=0.8)
+    starts, goals = scene_eval.sample_free_scenarios(
+        occ, C, 16, np.random.default_rng(0), **kw)
+    js, jg = jscene.sample_free_scenarios(occ, C, 16,
+                                          np.random.default_rng(0), **kw)
+    np.testing.assert_array_equal(starts, js)
+    np.testing.assert_array_equal(goals, jg)
+    for pts in (starts, goals):
+        assert (pts[:, 0] > 0.5).all() and (pts[:, 0] < 8.0).all()
+        assert (pts[:, 1] > 10.0).all() and (pts[:, 1] < 18.0).all()
+    mcfg = JMapConfig(xy_resolution=0.2, yaw_resolution=0.45)
+    jgrid = jax_hill_grid(mcfg)
+    occ_xy = np.asarray(jgrid.occ_xy)
+    got = scene_eval.sample_free_scenarios(occ_xy, mcfg, 8,
+                                           np.random.default_rng(3))
+    want = jscene.sample_free_scenarios(occ_xy, mcfg, 8,
+                                        np.random.default_rng(3))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def _coarse_hill_config(scene_config_fn):
+    """tests/test_scene_eval.py's coarse hill: 0.25 m, 1.1 rad, a small
+    search."""
+    scfg = scene_config_fn("hill")
+    return dataclasses.replace(
+        scfg, map=dataclasses.replace(scfg.map, xy_resolution=0.25,
+                                      yaw_resolution=1.1),
+        frontend=dataclasses.replace(scfg.frontend, frontier_size=64,
+                                     max_rounds=40))
+
+
+# run_scene's report against the JAX harness's on the same hill and seed
+# (both float32 on the CPU, each in its own operation order): the rates
+# and counts equal; the tracking errors within 2% relative; each of the six
+# post-solve metrics within 0.2% of its bound
+TOL_SCENE_TRACK_REL = 2e-2
+TOL_SCENE_METRIC_OF_BOUND = 2e-3
+SCENE_METRIC_BOUNDS = {"max_vx": "bound_vx", "max_ax": "bound_ax",
+                       "max_ay": "bound_ay", "max_kap": "bound_kap",
+                       "min_cxi": "bound_cxi", "max_sig": "bound_sig"}
+
+
+def test_scene_eval_matches_jax_on_a_coarse_hill(monkeypatch):
+    """tests/test_scene_eval.py:12 on both packages: `run_scene` on the
+    same coarse hill at batch 2, seed 0, on the CPU; the report has the
+    JAX harness's keys and agrees with its report (TOL_SCENE_*).  The C++
+    A* oracle's three keys stay None in the port."""
+    from uneven_planner_tpu import api as japi
+
+    def jax_hill(name, cache_dir="data", dtype=np.float32):
+        scfg = _coarse_hill_config(jscene_config)
+        return scfg, jax.device_put(jax_hill_grid(scfg.map, dtype=dtype))
+
+    def coarse_hill(name, cache_dir="data", dtype=np.float32, device=None):
+        scfg = _coarse_hill_config(scene_config)
+        return scfg, make_synthetic_grid(scfg.map, dtype=dtype,
+                                         device=device)
+
+    monkeypatch.setattr(japi, "load_or_build_scene", jax_hill)
+    monkeypatch.setattr(api, "load_or_build_scene", coarse_hill)
+    kw = dict(B=2, n_track_steps=40,
+              lbfgs_overrides={"mem_size": 8, "max_iterations": 250})
+    want = jscene.run_scene("hill", **kw)
+    rep = scene_eval.run_scene("hill", device="cpu", **kw)
+    json.dumps(rep)
+    assert set(rep) == set(want) == set(jscene_report_keys())
+    for k in ("scene", "batch", "map_cells", "map_cached",
+              "map_fits_per_sec", "frontend_success_rate",
+              "alm_convergence_rate", "alm_accepted_rate",
+              "failure_breakdown", "retried_lanes", "retry_recovered",
+              "pipeline_success_rate"):
+        assert rep[k] == want[k], (k, rep[k], want[k])
+    assert rep["pipeline_success_rate"] > 0.0
+    for k in ("oracle_feasible_rate", "frontend_success_on_feasible",
+              "pipeline_success_on_feasible"):
+        assert rep[k] is None
+    for k in ("mean_track_err_m", "final_track_err_m"):
+        np.testing.assert_allclose(rep[k], want[k],
+                                   rtol=TOL_SCENE_TRACK_REL, err_msg=k)
+    m, jm = rep["metrics"], want["metrics"]
+    for k, bound in SCENE_METRIC_BOUNDS.items():
+        assert m[bound] == jm[bound]
+        assert m[k] is not None and np.isfinite(m[k]), (k, m)
+        assert abs(m[k] - jm[k]) <= TOL_SCENE_METRIC_OF_BOUND * abs(
+            jm[bound]), (k, m[k], jm[k])
+
+
+def jscene_report_keys():
+    """The keys of the JAX harness's report (scene_eval.py:282-333)."""
+    return ["scene", "batch", "map_cells", "map_cached", "map_build_s",
+            "map_fits_per_sec", "wall_s", "frontend_success_rate",
+            "alm_convergence_rate", "alm_accepted_rate", "accept_criterion",
+            "failure_breakdown", "retried_lanes", "retry_recovered",
+            "oracle_feasible_rate", "frontend_success_on_feasible",
+            "pipeline_success_on_feasible", "res_h_p95", "res_g_p95",
+            "pipeline_success_rate", "mean_track_err_m",
+            "final_track_err_m", "max_non_hol", "metrics"]
+
+
+# ---------------------------------------------------------------------------
+# profiling, visualization
+# ---------------------------------------------------------------------------
+
+def test_solver_stats_stage_and_trace_match_jax(tmp_path):
+    """`solver_stats` equals the JAX function's on the same lanes; `Stage`
+    reports every stage; `trace` writes a Chrome trace, and a CPU-only
+    profile has no device time to summarize."""
+    rng = np.random.default_rng(0)
+    fields = dict(converged=rng.random(32) > 0.2,
+                  inner_iters=rng.integers(5, 300, 32),
+                  outer_iters=rng.integers(1, 9, 32),
+                  res_h=rng.random(32) * 1e-3, res_g=rng.random(32) * 1e-3)
+
+    class R:
+        pass
+    jr, tr = R(), R()
+    for k, v in fields.items():
+        setattr(jr, k, jnp.asarray(v))
+        setattr(tr, k, torch.as_tensor(v))
+    assert profiling.solver_stats(tr) == jprofiling.solver_stats(jr)
+    st = profiling.Stage()
+    for _ in range(2):
+        with st("a", sync=torch.zeros(1)):
+            pass
+    with st("b"):
+        pass
+    rep = st.report().splitlines()
+    assert rep[0].startswith("a: n=2") and rep[1].startswith("b: n=1")
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        torch.ones(64).sum()
+    assert (tmp_path / "tr" / "trace.json").exists()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            profiling.device_time_by_kernel(prof)
+
+
+VIS_CFG = MapConfig(xy_resolution=0.4, yaw_resolution=1.1)
+
+
+def test_vis_exports_equal_jax(tmp_path):
+    """tests/test_vis.py:15: every export of the port's grid equals the
+    JAX package's export of the same field, and the writers write what the
+    JAX test reads."""
+    jg = jax_hill_grid(JMapConfig(xy_resolution=0.4, yaw_resolution=1.1))
+    tg = make_synthetic_grid(VIS_CFG, device="cpu")
+    for yaw in (0.0, 1.3):
+        for fn in (vis.field_cloud, vis.occupancy_cloud,
+                   vis.normal_segments):
+            jfn = getattr(jvis, fn.__name__)
+            np.testing.assert_array_equal(fn(tg, yaw=yaw), jfn(jg, yaw=yaw))
+    for a, b in zip(vis.so2_pose_markers(tg), jvis.so2_pose_markers(jg)):
+        np.testing.assert_array_equal(a, b)
+    cloud = vis.field_cloud(tg)
+    vis.save_ply(str(tmp_path / "f.ply"), cloud[:, :3],
+                 intensity=cloud[:, 3])
+    jvis.save_ply(str(tmp_path / "j.ply"), cloud[:, :3],
+                  intensity=cloud[:, 3])
+    assert (tmp_path / "f.ply").read_text() == \
+        (tmp_path / "j.ply").read_text()
+    segs = vis.normal_segments(tg)
+    vis.save_csv(str(tmp_path / "s.csv"), segs, header="x1,y1,z1,x2,y2,z2")
+    assert len((tmp_path / "s.csv").read_text().splitlines()) \
+        == segs.shape[0] + 1
+
+
+def test_expanded_nodes_match_jax():
+    """tests/test_vis.py:45: the search's expanded nodes from the port's
+    arena equal those from the JAX package's on the same search."""
+    jg = jax_hill_grid(JMapConfig(xy_resolution=0.4, yaw_resolution=1.1))
+    tg = make_synthetic_grid(VIS_CFG, device="cpu")
+    fe = dataclasses.replace(jscene_config("hill").frontend,
+                             frontier_size=64, max_rounds=40)
+    tfe = dataclasses.replace(scene_config("hill").frontend,
+                              frontier_size=64, max_rounds=40)
+    start, goal = [-3.0, -3.0, 0.0], [-1.0, -3.0, 0.0]
+    jres = jax.jit(lambda s, g: jkino.plan(jg, fe, s, g, with_arena=True))(
+        jnp.asarray(start), jnp.asarray(goal))
+    want = jvis.expanded_nodes(jres.arena, jres.arena_parent)
+    tres = kino_init.plan(tg, tfe, torch.tensor([start], dtype=torch.float64),
+                          torch.tensor([goal], dtype=torch.float64),
+                          with_arena=True)
+    got = vis.expanded_nodes(tres.arena[0], tres.arena_parent[0])
+    assert got.shape[0] >= 1
+    assert (np.abs(got[:, :2]) <= 5.0 + 1e-6).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)

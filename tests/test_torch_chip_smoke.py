@@ -26,9 +26,11 @@ def _chip_smoke():
 def test_phases_default_is_every_phase():
     cs = _chip_smoke()
     assert cs.parse_phases([]) == list(cs.PHASES)
-    assert len(cs.PHASES) == 17 and len(set(cs.PHASES)) == 17
-    assert cs.PHASES[-1] == "build"
-    assert cs.PHASES[-4:-1] == ("nested-reference", "nested", "packed")
+    assert len(cs.PHASES) == 21 and len(set(cs.PHASES)) == 21
+    assert cs.PHASES[-5] == "build"
+    assert cs.PHASES[-8:-5] == ("nested-reference", "nested", "packed")
+    assert cs.PHASES[-4:] == ("dist", "bench-track", "precision",
+                              "scene-eval")
 
 
 @pytest.mark.parametrize("arg,want", [
@@ -39,7 +41,9 @@ def test_phases_default_is_every_phase():
     ("mpc-full,track-full-ref,mpc", ["track-full-ref", "mpc", "mpc-full"]),
     ("build,pipeline", ["pipeline", "build"]),
     ("packed,nested,nested-reference",
-     ["nested-reference", "nested", "packed"])])
+     ["nested-reference", "nested", "packed"]),
+    ("scene-eval,precision,dist,bench-track,terrain",
+     ["terrain", "dist", "bench-track", "precision", "scene-eval"])])
 def test_phases_subset(arg, want):
     assert _chip_smoke().parse_phases(["--phases", arg]) == want
 

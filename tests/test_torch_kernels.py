@@ -167,11 +167,105 @@ def test_autograd_on_card_goes_through_kernel(cuda_grid):
 
 @pytest.mark.cuda
 def test_launcher_rejects_float64_on_card(cuda_grid):
+    """float32 and float64 poses are served (float64 since the kernels took
+    it, `test_float64_kernels_equal_twin_bit_for_bit_on_card`); every other
+    pose dtype, poses of mixed dtypes and a pair table of another dtype than
+    the poses' raise TypeError before any launch."""
     g = cuda_grid
-    x = torch.zeros(16, dtype=torch.float64, device=g.device)
+    geom = tgrid.kernel_geometry(g)
+    before = dict(kernels.launches)
+    for dtype in (torch.float16, torch.bfloat16):
+        x = torch.zeros(16, dtype=dtype, device=g.device)
+        with pytest.raises(TypeError):
+            kernels.terrain_tv_pair(g.data_pair, geom, x, x, x, False)
+        with pytest.raises(TypeError):
+            kernels.terrain_tv_packed16(g.data_packed16, geom, x, x, x,
+                                        False, False)
+    x32 = torch.zeros(16, dtype=torch.float32, device=g.device)
+    x64 = x32.double()
     with pytest.raises(TypeError):
-        kernels.terrain_tv_pair(g.data_pair, tgrid.kernel_geometry(g), x, x,
-                                x, False)
+        kernels.terrain_tv_packed16(g.data_packed16, geom, x64, x32, x64,
+                                    False, False)
+    with pytest.raises(TypeError):
+        kernels.terrain_tv_pair(g.data_pair.half(), geom, x32, x32, x32,
+                                False)
+    with pytest.raises(TypeError):      # a float32 table under float64 poses
+        kernels.terrain_tv_pair(g.data_pair, geom, x64, x64, x64, False)
+    assert kernels.launches == before
+
+
+@pytest.fixture(scope="module")
+def cuda_grid64():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = make_synthetic_grid(MapConfig(xy_resolution=0.2, yaw_resolution=0.45),
+                            dtype=np.float64, device="cuda")
+    return tgrid.with_packed_f16(tgrid.with_pair_table(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("M", [1, 255, 5760, 43520, 100003])
+@pytest.mark.parametrize("want_jac", [False, True])
+def test_float64_kernels_equal_twin_bit_for_bit_on_card(cuda_grid64, mode, M,
+                                                        want_jac):
+    """On a float64 grid, K1 (float64 poses over its f16 table, the blends
+    in float64) and K2 (the float64 pair table) equal their twins bit for
+    bit in the instantiation the wrapper picks and in every other one:
+    both layouts, 32- and 64-bit index math."""
+    g = cuda_grid64
+    px, py, yaw = (t[:M].double().contiguous()
+                   for t in _poses(max(M, 256), 13, g.device))
+    geom = tgrid.kernel_geometry(g)
+    if mode == "pair":
+        want = tgrid.pair_tv_jac(g, px, py, yaw, want_jac)
+        runs = {"picked": lambda: kernels.terrain_tv_pair(
+            g.data_pair, geom, px, py, yaw, want_jac)}
+        launch = lambda **kw: kernels._launch_pair(
+            g.data_pair, geom, px, py, yaw, want_jac, **kw)
+    else:
+        exact = mode == "packed16_exact"
+        want = tgrid.packed16_tv_jac(g, px, py, yaw, exact, want_jac)
+        runs = {"picked": lambda: kernels.terrain_tv_packed16(
+            g.data_packed16, geom, px, py, yaw, exact, want_jac)}
+        launch = lambda **kw: kernels._launch_packed16(
+            g.data_packed16, geom, px, py, yaw, exact, want_jac, **kw)
+    for layout in kernels.LAYOUTS:
+        for idx32 in (True, False):
+            runs[(layout, idx32)] = (lambda layout=layout, idx32=idx32:
+                                     launch(layout=layout, idx32=idx32))
+    assert want[0].dtype == torch.float64
+    for which, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.float64, which
+        assert torch.equal(got[0], want[0]), which
+        if want_jac:
+            assert torch.equal(got[1], want[1]), which
+        else:
+            assert got[1] is None
+
+
+@pytest.mark.cuda
+def test_float64_grid_lookup_and_gradient_go_through_kernels(cuda_grid64):
+    """`get_terrain_variables_cm` on a float64 grid launches K1 (exact=False)
+    and K2 (exact=True) once a forward, and autograd through them equals
+    autograd through the twins' J."""
+    g = cuda_grid64
+    px, py, yaw = (t.double() for t in _poses(4096, 14, g.device))
+    for exact, name in ((False, "terrain_tv_packed16"),
+                        (True, "terrain_tv_pair")):
+        ins = [t.clone().requires_grad_(True) for t in (px, py, yaw)]
+        before = kernels.launches[name]
+        tv = tgrid.get_terrain_variables_cm(g, *ins, exact=exact)
+        grads = torch.autograd.grad(tv.sum(), ins)
+        assert kernels.launches[name] == before + 1
+        assert tv.dtype == torch.float64
+        _, jac = (tgrid.pair_tv_jac(g, px, py, yaw, True) if exact else
+                  tgrid.packed16_tv_jac(g, px, py, yaw, False, True))
+        for k in range(3):
+            torch.testing.assert_close(grads[k], jac[:, k].sum(0),
+                                       rtol=1e-12, atol=1e-12)
 
 
 def test_packed16_index_width_and_layout_choice():
@@ -200,6 +294,45 @@ def test_pair_index_width_and_layout_choice():
     for M in (132 * 256 + 1, 43520, 218880, 368640, 1653760):
         assert kernels.pair_layout(M, 132) == "thread"
     assert kernels.pair_layout(43520, 200) == "quad"
+
+
+def test_index_width_counts_the_table_bytes():
+    """The index width is chosen from the table's 16-byte words: a K1 row
+    is two whatever the grid's dtype, a K2 row two in float32 and four (64
+    bytes) in float64."""
+    cells = 200 * 200 * 64
+    f16 = torch.empty((2 * cells, 8), dtype=torch.int32, device="meta")
+    assert kernels.words16(f16) == 4 * cells
+    for dtype, words in ((torch.float32, 2), (torch.float64, 4)):
+        pair = torch.empty((cells, 8), dtype=dtype, device="meta")
+        assert kernels.words16(pair) == words * cells
+    big = torch.empty((2 ** 29, 8), dtype=torch.float64, device="meta")
+    assert kernels.index_bits(kernels.words16(big)) == 64
+    assert kernels.index_bits(kernels.words16(big.float())) == 32
+
+
+def test_launchers_refuse_other_dtypes_before_anything_else():
+    """A pose dtype the kernels do not take (float16, bfloat16, mixed) is a
+    TypeError on any device, before the device check, the build or a
+    launch; float32 and float64 on the CPU reach the device check."""
+    g = tgrid.with_pair_table(make_synthetic_grid(
+        MapConfig(xy_resolution=0.4, yaw_resolution=1.1), dtype=np.float64,
+        device="cpu"))
+    geom = tgrid.kernel_geometry(g)
+    before = dict(kernels.launches)
+    for dtype in (torch.float16, torch.bfloat16):
+        x = torch.zeros(8, dtype=dtype)
+        with pytest.raises(TypeError):
+            kernels.terrain_tv_pair(g.data_pair, geom, x, x, x, True)
+    with pytest.raises(TypeError):
+        kernels.terrain_tv_pair(g.data_pair, geom, torch.zeros(8),
+                                torch.zeros(8, dtype=torch.float64),
+                                torch.zeros(8), True)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.zeros(8, dtype=dtype)
+        with pytest.raises(ValueError):
+            kernels.terrain_tv_pair(g.data_pair, geom, x, x, x, True)
+    assert kernels.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -54,23 +54,24 @@ TABLES = {"f16": tgrid.with_packed_f16, "packed": tgrid.with_packed_table,
 
 
 def scene_setup(map_cfg: MapConfig | None = None, device=None,
-                table: str = "f16"):
-    """(SceneConfig, hill grid in float32 with the pair table and the fast
-    table `table`): "f16" the f16 table (2 six-word rows a lookup, field
-    error ~2.5e-4), "packed" the split-bf16 table (2 twelve-word rows,
-    <= 4e-6), "pair" none, so the solver iterates on the exact table."""
+                table: str = "f16", dtype=np.float32):
+    """(SceneConfig, hill grid in `dtype` (float32 by default) with the pair
+    table and the fast table `table`): "f16" the f16 table (2 six-word rows
+    a lookup, field error ~2.5e-4), "packed" the split-bf16 table (2
+    twelve-word rows, <= 4e-6), "pair" none, so the solver iterates on the
+    exact table."""
     if table not in TABLES:
         raise ValueError(f"table {table!r}: one of {', '.join(TABLES)}")
     cfg: SceneConfig = scene_config("hill")
     if map_cfg is not None:
         cfg = dataclasses.replace(cfg, map=map_cfg)
-    grid = make_synthetic_grid(cfg.map, dtype=np.float32, device=device)
+    grid = make_synthetic_grid(cfg.map, dtype=dtype, device=device)
     return cfg, TABLES[table](tgrid.with_pair_table(grid))
 
 
 def make_batch(B, cfg: SceneConfig, shape: alm.ProblemShape, rng,
-               sort: bool = True, device=None):
-    """B straight-line hill scenarios -> (x0s [B, n] float32, Boundary,
+               sort: bool = True, device=None, dtype=torch.float32):
+    """B straight-line hill scenarios -> (x0s [B, n] in `dtype`, Boundary,
     feats [B, 19] numpy).  Same draws as bench.make_batch."""
     dev = resolve_device(device)
     x0s, bounds, feats = [], [], []
@@ -102,7 +103,7 @@ def make_batch(B, cfg: SceneConfig, shape: alm.ProblemShape, rng,
         x0s = x0s[order]
         bounds = [bounds[i] for i in order]
         feats = feats[order]
-    to = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
     bound = alm.Boundary(*[to(np.stack([getattr(b, f) for b in bounds]))
                            for f in alm.Boundary._fields])
     return to(x0s), bound, feats

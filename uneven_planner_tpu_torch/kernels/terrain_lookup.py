@@ -2,9 +2,12 @@
 (`csrc/terrain_lookup.cu`), built and loaded at first use by
 `kernels/build.py`; importing this module needs no toolchain.
 
-Every launcher checks device, dtype, shape and contiguity, raises on
+Every launcher checks dtype, device, shape and contiguity, raises on
 anything the kernel does not take, enqueues on PyTorch's current stream and
-raises if `cudaGetLastError` reports a failed launch.  It never falls back
+raises if `cudaGetLastError` reports a failed launch.  Both kernels take
+float32 or float64 poses (outputs in the poses' dtype): K1 over its f16
+table whatever the grid's dtype, K2 over a pair table of the poses'
+dtype.  It never falls back
 to the plain PyTorch version: that choice is the caller's, by device
 (`terrain/grid.py`).
 
@@ -21,7 +24,10 @@ import torch
 
 from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 
-launches = {"terrain_tv_packed16": 0, "terrain_tv_pair": 0}
+# every launch counts under the kernel's name; the float64 instantiations'
+# launches count again under "<name>_f64"
+launches = {"terrain_tv_packed16": 0, "terrain_tv_pair": 0,
+            "terrain_tv_packed16_f64": 0, "terrain_tv_pair_f64": 0}
 
 
 def reset_launches():
@@ -33,8 +39,15 @@ def index_bits(table_words16: int) -> int:
     """Width of K1's and K2's index math for a table of `table_words16`
     16-byte words: 32 when every word is addressable with a 32-bit int
     (every map the planner builds: the hill's full f16 table is 10,240,000
-    words, its pair table 5,120,000), 64 otherwise."""
+    words, its pair table 5,120,000 in float32 and 10,240,000 in float64),
+    64 otherwise."""
     return 32 if table_words16 < 2 ** 31 else 64
+
+
+def words16(table: torch.Tensor) -> int:
+    """16-byte words of a table: a K1 row is two, a K2 row two in float32
+    and four (64 bytes) in float64."""
+    return table.numel() * table.element_size() // 16
 
 
 LAYOUTS = ("thread", "quad")
@@ -66,13 +79,20 @@ def pair_layout(M: int, sms: int) -> str:
     return "quad" if quads_fit else "thread"
 
 
+# the dtypes the kernels take, and the suffix of their C entries
+_ENTRY = {torch.float32: "", torch.float64: "_f64"}
+
+
 def _declare(lib):
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    geom = [i, i, i] + [f] * 11
-    lib.terrain_tv_packed16.argtypes = [p] * 6 + [i] + geom + [i, i, i, i, p]
-    lib.terrain_tv_packed16.restype = i
-    lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + geom + [i, i, i, p]
-    lib.terrain_tv_pair.restype = i
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for suffix, real in (("", ctypes.c_float), ("_f64", ctypes.c_double)):
+        geom = [i, i, i] + [real] * 11
+        k1 = getattr(lib, "terrain_tv_packed16" + suffix)
+        k1.argtypes = [p] * 6 + [i] + geom + [i, i, i, i, p]
+        k1.restype = i
+        k2 = getattr(lib, "terrain_tv_pair" + suffix)
+        k2.argtypes = [p] * 6 + [i] + geom + [i, i, i, p]
+        k2.restype = i
     lib.terrain_lookup_error_string.argtypes = [i]
     lib.terrain_lookup_error_string.restype = ctypes.c_char_p
 
@@ -87,11 +107,14 @@ def _sm_count(device) -> int:
 
 
 def _check_poses(px, py, yaw):
-    for name, t in (("px", px), ("py", py), ("yaw", yaw)):
+    poses = (("px", px), ("py", py), ("yaw", yaw))
+    for name, t in poses:
+        if t.dtype not in _ENTRY or t.dtype != px.dtype:
+            raise TypeError(f"{name} must be float32 or float64, as px, got "
+                            f"{t.dtype}")
+    for name, t in poses:
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name} must be 1-D and contiguous")
         if t.shape != px.shape or t.device != px.device:
@@ -113,11 +136,17 @@ def _check_table(table, rows, dtype, device):
         raise ValueError("table must be 16-byte aligned")
 
 
-def _outputs(M, want_jac, device):
-    tv = torch.empty((7, M), dtype=torch.float32, device=device)
-    jac = (torch.empty((7, 3, M), dtype=torch.float32, device=device)
+def _outputs(M, want_jac, dtype, device):
+    tv = torch.empty((7, M), dtype=dtype, device=device)
+    jac = (torch.empty((7, 3, M), dtype=dtype, device=device)
            if want_jac else None)
     return tv, jac
+
+
+def _count(name, dtype):
+    launches[name] += 1
+    if dtype == torch.float64:
+        launches[name + "_f64"] += 1
 
 
 def _raise_on(lib, err, name):
@@ -128,15 +157,16 @@ def _raise_on(lib, err, name):
 
 def terrain_tv_packed16(table, geom, px, py, yaw, exact: bool,
                         want_jac: bool):
-    """K1: tv [7, M] (and J [7, 3, M] when `want_jac`) from the f16 packed
-    table [2*Ncells, 8] int32.  `geom` is `terrain.grid.kernel_geometry`.
-    The index width comes from the table size (`index_bits`) and the layout
-    from M and the card (`packed16_layout`)."""
+    """K1: tv [7, M] (and J [7, 3, M] when `want_jac`), in the poses'
+    dtype, from the f16 packed table [2*Ncells, 8] int32.  `geom` is
+    `terrain.grid.kernel_geometry`.  The index width comes from the table
+    size (`index_bits`) and the layout from M and the card
+    (`packed16_layout`)."""
     _check_poses(px, py, yaw)
     return _launch_packed16(
         table, geom, px, py, yaw, exact, want_jac,
         layout=packed16_layout(px.numel(), _sm_count(px.device)),
-        idx32=index_bits(table.numel() // 4) == 32)
+        idx32=index_bits(words16(table)) == 32)
 
 
 def _launch_packed16(table, geom, px, py, yaw, exact: bool, want_jac: bool,
@@ -149,29 +179,29 @@ def _launch_packed16(table, geom, px, py, yaw, exact: bool, want_jac: bool,
     nx, ny, nyaw = geom[:3]
     _check_table(table, 2 * nx * ny * nyaw, torch.int32, px.device)
     M = px.numel()
-    tv, jac = _outputs(M, want_jac, px.device)
+    tv, jac = _outputs(M, want_jac, px.dtype, px.device)
     if M == 0:
         return tv, jac
     lib = _library()
     stream = torch.cuda.current_stream(px.device).cuda_stream
-    err = lib.terrain_tv_packed16(
+    err = getattr(lib, "terrain_tv_packed16" + _ENTRY[px.dtype])(
         px.data_ptr(), py.data_ptr(), yaw.data_ptr(), table.data_ptr(),
         tv.data_ptr(), jac.data_ptr() if want_jac else None, M, *geom,
         int(exact), int(want_jac), int(idx32), int(layout == "quad"), stream)
     _raise_on(lib, err, "terrain_tv_packed16")
-    launches["terrain_tv_packed16"] += 1
+    _count("terrain_tv_packed16", px.dtype)
     return tv, jac
 
 
 def terrain_tv_pair(table, geom, px, py, yaw, want_jac: bool):
     """K2: tv [7, M] (and J [7, 3, M]) from the yaw-pair table
-    [Ncells, 8] float32.  Index width and layout are picked as K1's
-    (`index_bits`, `pair_layout`)."""
+    [Ncells, 8] of the poses' dtype (float32 or float64).  Index width and
+    layout are picked as K1's (`index_bits`, `pair_layout`)."""
     _check_poses(px, py, yaw)
     return _launch_pair(
         table, geom, px, py, yaw, want_jac,
         layout=pair_layout(px.numel(), _sm_count(px.device)),
-        idx32=index_bits(table.numel() // 4) == 32)
+        idx32=index_bits(words16(table)) == 32)
 
 
 def _launch_pair(table, geom, px, py, yaw, want_jac: bool, *, layout: str,
@@ -181,17 +211,17 @@ def _launch_pair(table, geom, px, py, yaw, want_jac: bool, *, layout: str,
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     nx, ny, nyaw = geom[:3]
-    _check_table(table, nx * ny * nyaw, torch.float32, px.device)
+    _check_table(table, nx * ny * nyaw, px.dtype, px.device)
     M = px.numel()
-    tv, jac = _outputs(M, want_jac, px.device)
+    tv, jac = _outputs(M, want_jac, px.dtype, px.device)
     if M == 0:
         return tv, jac
     lib = _library()
     stream = torch.cuda.current_stream(px.device).cuda_stream
-    err = lib.terrain_tv_pair(
+    err = getattr(lib, "terrain_tv_pair" + _ENTRY[px.dtype])(
         px.data_ptr(), py.data_ptr(), yaw.data_ptr(), table.data_ptr(),
         tv.data_ptr(), jac.data_ptr() if want_jac else None, M, *geom,
         int(want_jac), int(idx32), int(layout == "quad"), stream)
     _raise_on(lib, err, "terrain_tv_pair")
-    launches["terrain_tv_pair"] += 1
+    _count("terrain_tv_pair", px.dtype)
     return tv, jac

@@ -127,6 +127,13 @@ class TerrainGrid:
     def replace(self, **changes) -> "TerrainGrid":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device) -> "TerrainGrid":
+        """The same grid, every tensor (tables included) on `device`."""
+        return self.replace(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
 
 def from_buffers(data: torch.Tensor, min_cnormal: float, max_rho: float,
                  xy_resolution: float, yaw_resolution: float,
