@@ -103,10 +103,25 @@ Phases, each of which must pass (exit code 1 otherwise):
               each within 5% of data/err_bench_proposed_hill.txt;
  20. precision  bench.precision_study at 64 lanes: fp32 on the card and
               fp64 on the card against fp64 on the CPU;
- 21. scene-eval  bench.scene_eval.run_scene on the hill at a cut batch.
+ 21. scene-eval  bench.scene_eval.run_scene on the hill at a cut batch,
+              with the C++ A* oracle's feasibility of its scenarios: the
+              search must succeed on every feasible one;
+ 22. oracle   the port held to the reference's float64 oracles: K6 on
+              QP_DUMP_r05.json's condensed QP and 255 perturbed copies
+              (256 lanes) within 1e-3 of the port's certified active-set
+              optimum of each (utils/qp_ref.py, which re-certifies the
+              dump); the float64 inner cost on the card (K2's float64
+              instantiation) against the C++ forward (utils/native.py,
+              built with g++ from native/src) to 1e-9 on 6 seeds, its
+              gradient against the C++'s central differences; the C++ A*
+              on the hill against the search on 64 sampled scenarios;
+ 23. demo     the user entry points: examples.plan_demo on the hill with
+              --track and --out, examples.debug_stepper, and
+              examples.build_maps on a hill cloud written as a PCD, its
+              CSV cache read back by the C++.
 Prints the kernels' JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without CUDA, or without the package beside
-it, it exits 2 and prints no result.  `--phases` names phases 3-21 by their
+it, it exits 2 and prints no result.  `--phases` names phases 3-23 by their
 short names (PHASES below; 6 runs with 5, the plan's profile with 8 and
 the nested path's with 15): it runs the device and build steps and those
 phases, prints their lines and `# total`, and ends with {"partial": [...]}
@@ -262,7 +277,7 @@ PHASES = ("terrain", "gather", "tanh", "admm", "small-reference",
           "headline", "plan-reference", "plan", "track-reference",
           "track-full-ref", "mpc", "mpc-full", "pipeline",
           "nested-reference", "nested", "packed", "build", "dist",
-          "bench-track", "precision", "scene-eval")
+          "bench-track", "precision", "scene-eval", "oracle", "demo")
 
 
 def log(*a):
@@ -1841,6 +1856,19 @@ def admm_full_qp_rows(device):
     return rows
 
 
+def k6_bound(its, B, n, m):
+    """(bound_ms, bound_by, flops, bytes) of one float32 launch of K6's
+    shared-memory instantiations on B (n, m) QPs whose lanes run `its`
+    [B] iterations: each lane's P, A, bounds and state read once and its
+    solution written once, 2 (4 m n + 2 n^2) operations an iteration."""
+    flops = float(its.sum()) * 2 * (4 * m * n + 2 * n * n)
+    nbytes = 4 * B * (2 * n * n + m * n + 2 * n + 4 * m + 1
+                      + 2 * (n + 2 * m + 6))
+    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
 def phase_admm_kernel(device):
     """K6 against its twin on the same CUDA tensors: the QPs of a real
     tracking tick (256 lanes) and random SPD box QPs of the same shape,
@@ -1912,9 +1940,7 @@ def phase_admm_kernel(device):
         split_equal = all(torch.equal(a, b) for a, b in zip(got, part))
 
         its = got.it.long()
-        flops = float(its.sum()) * 2 * (4 * m * n + 2 * n * n)
-        nbytes = 4 * B * (2 * n * n + m * n + 2 * n + 4 * m + 1
-                          + 2 * (n + 2 * m + 6))
+        bound_ms, bound_by, flops, nbytes = k6_bound(its, B, n, m)
         per_sm = -(-B // 132)      # lanes the busiest SM must run in turn
         kern = lambda: admm.admm_iterations(d, s, n_iters=budget, **path_kw)
         twin = lambda: admm.admm_iterations_twin(d, s, n_iters=budget,
@@ -1931,9 +1957,7 @@ def phase_admm_kernel(device):
             finite=bool(torch.isfinite(got.x).all()),
             ms=device_ms(kern, reps=15, inner=4),
             plain_ms=device_ms(twin, reps=3, inner=1), library_ms=None,
-            bound_ms=max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
-            bound_by=("operations" if flops / PEAK_F32
-                      >= nbytes / PEAK_BYTES else "bytes"),
+            bound_ms=bound_ms, bound_by=bound_by,
             bound_ms_at_occupancy=float(its.max()) * per_sm * 2
             * (4 * m * n + 2 * n * n) / (PEAK_F32 / 132) * 1e3,
             flops=flops, bytes=nbytes,
@@ -3324,7 +3348,10 @@ SCENE_BATCH = 8
 def phase_scene_eval(device, smi):
     """`bench.scene_eval.run_scene` on the hill at a cut batch
     (SCENE_BATCH scenarios sampled in free space, 500 ticks, with its one
-    retry of failed lanes): the whole pipeline on the card, its report."""
+    retry of failed lanes): the whole pipeline on the card, its report,
+    with the C++ A* oracle's three keys, which must be set, and the
+    search's success on the oracle's feasible scenarios, which must be
+    1.0."""
     from uneven_planner_tpu_torch.bench import scene_eval
     reset_all_launches()
     rep = scene_eval.run_scene("hill", B=SCENE_BATCH, device=device)
@@ -3337,7 +3364,417 @@ def phase_scene_eval(device, smi):
             or rep["mean_track_err_m"] is None \
             or not rep["mean_track_err_m"] <= MAX_TRACK_ERR:
         raise RuntimeError(f"scene_eval on the hill: {rep}")
+    # the C++ A* oracle's keys: set, and the search succeeds on every
+    # scenario the oracle finds feasible (the JAX harness's record on every
+    # reference scene, SCENES_r05.json)
+    oracle = {k: rep[k] for k in ("oracle_feasible_rate",
+                                  "frontend_success_on_feasible",
+                                  "pipeline_success_on_feasible")}
+    if any(v is None for v in oracle.values()) \
+            or oracle["frontend_success_on_feasible"] != 1.0:
+        raise RuntimeError(f"scene_eval's oracle keys: {oracle}")
     return rep
+
+
+# ---------------------------------------------------------------------------
+# the reference's float64 oracles, and the user entry points
+# ---------------------------------------------------------------------------
+
+# the certified QP (QP_DUMP_r05.json: one real tick's condensed QP, n = 60,
+# m = 118, with its f64 active-set optimum): the dump's lane and the lanes
+# whose q entries are scaled by 1 + QP_ORACLE_NOISE x N(0, 1), seeded
+QP_ORACLE_LANES = 256
+QP_ORACLE_NOISE = 1e-2
+# BASELINE's control-sequence gate: |x - x_f64| on every lane
+TOL_QP_ORACLE = 1e-3
+# the port's qp_ref re-certifies the dump: KKT residuals
+TOL_QP_KKT = 1e-9
+# the inner cost against the C++ forward (tests/test_native.py:152, :172):
+# (rtol, atol) of the value on each seed, of the gradient against central
+# differences (h = 1e-6) of the C++ on seed 1
+TOL_INNER_COST = (1e-9, 1e-10)
+TOL_INNER_GRAD = (5e-4, 5e-6)
+INNER_COST_SEEDS = 6
+# scenarios of the C++ A* against the port's search: bench.scene_eval's
+# sampler at the JAX harness's batch
+ORACLE_SEARCH_BATCH = 64
+
+
+def inner_cost_fixture(seed, device):
+    """tests/test_native.py:115's fixture in the port, on `device`: the
+    coarse float64 hill (0.2 m, 0.45 rad) with its pair table,
+    ProblemShape(6, 12, 8), an off-init iterate of a random straight
+    path, random duals, the default constraint scaling; one lane.
+    Returns (grid, cfg, shape, x, bound, duals, scaling)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch import manager
+    from uneven_planner_tpu_torch.config import MapConfig, scene_config
+    from uneven_planner_tpu_torch.solver import alm
+    from uneven_planner_tpu_torch.terrain import grid as tgrid
+    from uneven_planner_tpu_torch.terrain.synthetic import make_synthetic_grid
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(scene_config("hill"), map=MapConfig(
+        xy_resolution=0.2, yaw_resolution=0.45))
+    grid = tgrid.with_pair_table(make_synthetic_grid(cfg.map, device=device))
+    shape = alm.ProblemShape(piece_xy=6, piece_yaw=12, int_K=8)
+    ang = rng.uniform(-np.pi, np.pi)
+    start = rng.uniform(-3.0, -1.5, size=2)
+    goal = np.clip(start + 2.0 * np.array([np.cos(ang), np.sin(ang)]),
+                   -3.5, 3.5)
+    yaw = np.arctan2(goal[1] - start[1], goal[0] - start[0])
+    t = np.linspace(0, 1, 16)[:, None]
+    path = np.concatenate([(1 - t) * start + t * goal,
+                           np.full((16, 1), yaw)], axis=1)
+    x0, bound = manager.init_guess_fixed(path, cfg.manager,
+                                         piece_xy=shape.piece_xy,
+                                         piece_yaw=shape.piece_yaw)
+    x = x0 + rng.normal(size=x0.shape) * 0.02
+    E, I = shape.equal_num, shape.non_equal_num
+    lane = lambda a: torch.as_tensor(np.asarray(a, np.float64))[None] \
+        .to(device)
+    duals = alm.DualState(lam=lane(rng.normal(size=E) * 0.1),
+                          mu=lane(np.abs(rng.normal(size=I)) * 0.1),
+                          rho=lane(rng.uniform(1.0, 3.0)))
+    scaling = alm.Scaling(
+        scale_fx=lane(1.0),
+        scale_cx=alm.default_scale_cx(shape, cfg.alm, 1, torch.float64,
+                                      device))
+    return (grid, cfg, shape, lane(x), alm.Boundary(*map(lane, bound)),
+            duals, scaling)
+
+
+def cpp_inner_cost(grid, cfg, shape, x, bound, duals, scaling):
+    """`native.inner_cost` of one lane of `inner_cost_fixture`."""
+    from uneven_planner_tpu_torch.utils import native
+    return native.inner_cost(grid, cfg.alm, shape, x, bound, duals.lam,
+                             duals.mu, float(duals.rho[0]),
+                             scaling.scale_cx, float(scaling.scale_fx[0]))
+
+
+def oracle_qp(device):
+    """(a) of the `oracle` phase: K6 (through `solve_qp`, the controller's
+    settings: one launch of the fixed shared-memory instantiation) on the
+    dumped QP and its perturbed lanes against the port's certified f64
+    optimum of each lane, and the dump re-certified.  Also a reading, not
+    a gate: lanes whose q takes absolute N(0, 1e-2) noise, which puts
+    weight on P's weakest direction (eigenvalue 0.02 of up to 798).
+    Returns (readings, faults, the K6 launch at the perturbed lanes' data
+    with the bound of its iterations, for timing)."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.kernels import admm
+    from uneven_planner_tpu_torch.solver import admm_qp
+    from uneven_planner_tpu_torch.utils import qp_ref
+    with open(os.path.join(HERE, "QP_DUMP_r05.json")) as f:
+        dump = json.load(f)
+    P, q, A, l, u = [np.asarray(dump[k], np.float64) for k in "PqAlu"]
+    B, n, m = QP_ORACLE_LANES, q.shape[0], l.shape[0]
+    z, y = qp_ref.solve_qp_f64(P, q, A, l, u)
+    kkt = [float(v) for v in qp_ref.kkt_residuals_f64(P, q, A, l, u, z, y)]
+    rng = np.random.default_rng(11)
+    noise = rng.normal(size=(B - 1, n))
+    qs = np.concatenate([q[None], q * (1.0 + QP_ORACLE_NOISE * noise)])
+    q_abs = np.concatenate([q[None], q + QP_ORACLE_NOISE * noise])
+    cfg = MPCConfig()
+    kw = dict(rho=cfg.qp_rho, sigma=cfg.qp_sigma, alpha=cfg.qp_alpha,
+              eps_abs=cfg.qp_abs_tol, eps_rel=cfg.qp_rel_tol,
+              max_iter=cfg.qp_max_iter, polish=cfg.qp_polish,
+              adaptive_rho=cfg.qp_adaptive_rho,
+              fixed_iters=cfg.qp_scan_iters)
+    lanes = lambda a: torch.as_tensor(
+        np.ascontiguousarray(np.broadcast_to(a, (B,) + a.shape)),
+        dtype=torch.float32, device=device)
+    card = lambda qq: admm_qp.solve_qp(lanes(P), torch.as_tensor(
+        qq, dtype=torch.float32, device=device), lanes(A), lanes(l),
+        lanes(u), **kw)
+
+    out, its_of = {}, {}
+    for name, qq in (("relative", qs), ("absolute", q_abs)):
+        t0 = time.perf_counter()
+        want = np.stack([qp_ref.solve_qp_f64(P, v, A, l, u)[0] for v in qq])
+        certify_s = time.perf_counter() - t0
+        sol = card(qq)
+        gap = np.abs(sol.x.double().cpu().numpy() - want).max(1)
+        its = its_of[name] = sol.iters.cpu().long()
+        out[name] = dict(max_gap=float(gap.max()), gap_dump=float(gap[0]),
+                         lanes_over_tol=int((gap > TOL_QP_ORACLE).sum()),
+                         iters_mean=float(its.float().mean()),
+                         at_budget=int((its >= cfg.qp_scan_iters).sum()),
+                         certify_s=certify_s,
+                         finite=bool(torch.isfinite(sol.x).all()))
+    # the launch alone, at the relative lanes' data (the iterations of
+    # their solve above: the same setup and launch), as `admm` times K6
+    setup = admm_qp.setup_qp(lanes(P), torch.as_tensor(
+        qs, dtype=torch.float32, device=device), lanes(A), lanes(l),
+        lanes(u), rho=cfg.qp_rho, sigma=cfg.qp_sigma)
+    kern = lambda: admm.admm_iterations(
+        setup.data, setup.state, n_iters=cfg.qp_scan_iters,
+        sigma=cfg.qp_sigma, alpha=cfg.qp_alpha, eps_abs=cfg.qp_abs_tol,
+        eps_rel=cfg.qp_rel_tol, max_iter=cfg.qp_max_iter)
+    bound_ms, bound_by, _, _ = k6_bound(its_of["relative"], B, n, m)
+    out.update(lanes=B, n=n, m=m, noise=QP_ORACLE_NOISE,
+               variant=admm.variant(n, m, torch.float32),
+               dump_kkt=dict(zip(("stat", "prim", "comp"), kkt)),
+               dump_vs_recorded=float(np.abs(
+                   z - np.asarray(dump["x_activeset_f64"])).max()),
+               k6_bound_ms=bound_ms, k6_bound_by=bound_by)
+    fails = []
+    if max(kkt) > TOL_QP_KKT:
+        fails.append(f"qp_ref does not re-certify the dump: {kkt}")
+    rel = out["relative"]
+    if rel["lanes_over_tol"] or not rel["finite"]:
+        fails.append(f"K6 off the certified optimum: {rel}")
+    return out, fails, kern
+
+
+def oracle_inner_cost(device):
+    """(b) of the `oracle` phase: the card's float64 inner cost (K2's
+    float64 instantiation over the pair table) against the C++ forward
+    over the bare field on INNER_COST_SEEDS seeds, and its autograd
+    gradient (K2 with J) against central differences of the C++."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.solver import alm
+    rows, fails = [], []
+    for seed in range(INNER_COST_SEEDS):
+        grid, cfg, shape, x, bound, duals, scaling = inner_cost_fixture(
+            seed, device)
+        xg = x.clone().requires_grad_(seed == 1)
+        f = alm.inner_cost(xg, bound, shape, grid, cfg.alm, duals, scaling)
+        f_cpp = cpp_inner_cost(grid, cfg, shape, x, bound, duals, scaling)
+        f_card = float(f[0].detach())
+        row = dict(seed=seed, f_card=f_card, f_cpp=f_cpp,
+                   rel_err=abs(f_card - f_cpp) / abs(f_cpp))
+        if not np.isclose(f_card, f_cpp, rtol=TOL_INNER_COST[0],
+                          atol=TOL_INNER_COST[1]):
+            fails.append(f"inner cost, seed {seed}: {row}")
+        if seed == 1:
+            g, = torch.autograd.grad(f.sum(), xg)
+            g = g[0].cpu().numpy()
+            xn = x[0].cpu().numpy()
+            fd = np.zeros_like(xn)
+            for i in range(xn.shape[0]):
+                e = np.zeros_like(xn)
+                e[i] = 1e-6
+                fd[i] = (cpp_inner_cost(grid, cfg, shape, xn + e, bound,
+                                        duals, scaling)
+                         - cpp_inner_cost(grid, cfg, shape, xn - e, bound,
+                                          duals, scaling)) / 2e-6
+            row["grad_max_abs_err"] = float(np.abs(g - fd).max())
+            if not np.allclose(g, fd, rtol=TOL_INNER_GRAD[0],
+                               atol=TOL_INNER_GRAD[1]):
+                fails.append(f"inner cost gradient, seed 1: {row}")
+        rows.append(row)
+    return rows, fails
+
+
+def oracle_search(device):
+    """(c) of the `oracle` phase: the C++ A* on the full hill grid (float32,
+    the pair table, as `scene-eval` plans on it) from (-3, -3, 0) to
+    (0.5, -3, 0) with tests/test_native.py:56's path checks, then on
+    ORACLE_SEARCH_BATCH scenarios of `scene_eval.sample_free_scenarios`
+    beside the port's search on the card over the same grid."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.bench import scene_eval
+    from uneven_planner_tpu_torch.config import scene_config
+    from uneven_planner_tpu_torch.frontend import kino_init
+    from uneven_planner_tpu_torch.terrain import grid as tgrid
+    from uneven_planner_tpu_torch.terrain.synthetic import make_synthetic_grid
+    from uneven_planner_tpu_torch.utils import native
+    cfg = scene_config("hill")
+    fe = cfg.frontend
+    grid = tgrid.with_pair_table(make_synthetic_grid(
+        cfg.map, dtype=np.float32, device=device))
+    fails = []
+    start, goal = np.array([-3.0, -3.0, 0.0]), np.array([0.5, -3.0, 0.0])
+    path = native.kino_astar_plan(grid, fe, start, goal)
+    if path is None or len(path) < 3:
+        fails.append("the C++ A* found no path on the hill")
+    else:
+        occ = grid.occ_xy.cpu().numpy()
+        ix = ((path[:, 0] - grid.origin[0]) / grid.xy_resolution).astype(int)
+        iy = ((path[:, 1] - grid.origin[1]) / grid.xy_resolution).astype(int)
+        steps = np.linalg.norm(np.diff(path[:, :2], axis=0), axis=1)
+        if (np.abs(path[0] - start).max() > 1e-9
+                or np.abs(path[-1] - goal).max() > 1e-9 or occ[ix, iy].any()
+                or steps.max() >= fe.max_vel * fe.time_interval + 1e-6):
+            fails.append("the C++ A* path fails its checks")
+    starts, goals = scene_eval.sample_free_scenarios(
+        grid.occ_xy.cpu().numpy(), cfg.map, ORACLE_SEARCH_BATCH,
+        np.random.default_rng(0))
+    t0 = time.perf_counter()
+    feasible = np.array([native.kino_astar_plan(grid, fe, a, b) is not None
+                         for a, b in zip(starts, goals)])
+    astar_s = time.perf_counter() - t0
+    to = lambda a: torch.as_tensor(a, device=device)
+    kres = kino_init.plan(grid, fe, to(starts), to(goals))
+    success = kres.success.cpu().numpy()
+    faults = check_paths(grid, kres, starts, goals,
+                         fe.max_vel * fe.time_interval)
+    out = dict(astar_path_len=None if path is None else len(path),
+               scenarios=len(starts), oracle_feasible=int(feasible.sum()),
+               card_success=int(success.sum()),
+               card_success_on_feasible=float(success[feasible].mean())
+               if feasible.any() else None,
+               card_success_on_infeasible=int(success[~feasible].sum()),
+               astar_s=astar_s, n_path_faults=len(faults))
+    if not feasible.any() or not success[feasible].all():
+        fails.append(f"the card's search fails where the C++ A* finds a "
+                     f"path: {out}")
+    if faults:
+        fails.append(f"{len(faults)} path faults: {faults[:4]}")
+    return out, fails
+
+
+def phase_oracle(device, smi):
+    """The port held to the reference's float64 oracles on the card: (a)
+    the certified QP, (b) the inner cost and its gradient against the C++
+    forward, (c) the C++ A* against the search.  The kernels' launches of
+    the three are counted together, before K6's launch is timed."""
+    reset_all_launches()
+    t0 = time.perf_counter()
+    qp, fails_a, k6 = oracle_qp(device)
+    cost, fails_b = oracle_inner_cost(device)
+    search, fails_c = oracle_search(device)
+    launches = all_launches()
+    qp["k6_ms"] = device_ms(k6, reps=15, inner=4)
+    out = dict(card=smi, qp=qp, inner_cost=cost, search=search,
+               launches=launches, wall_s=time.perf_counter() - t0)
+    log("# oracle " + json.dumps(out))
+    fails = fails_a + fails_b + fails_c
+    for name in ("admm_iterations", "terrain_tv_pair_f64", "gather_rows",
+                 *K4_FAMILY):
+        if launches[name] == 0:
+            fails.append(f"{name} was never launched by the oracles' runs")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
+
+
+def _csv_rows(path, header):
+    """The data rows of a CSV whose first line is `header`, as floats;
+    raises on another header, a row of another width or a value that is
+    not finite."""
+    import numpy as np
+    with open(path) as f:
+        lines = f.read().splitlines()
+    if not lines or lines[0] != header:
+        raise RuntimeError(f"{path}: header {lines[:1]} is not {header!r}")
+    width = len(header.split(","))
+    rows = np.asarray([ln.split(",") for ln in lines[1:]], np.float64)
+    if rows.ndim != 2 or rows.shape[1] != width \
+            or not np.isfinite(rows).all():
+        raise RuntimeError(f"{path}: malformed rows {rows.shape}")
+    return rows
+
+
+def phase_demo(device, smi):
+    """The user entry points on the card, each with its launches counted:
+    `examples.plan_demo` on the hill (the JAX script's defaults, --track
+    and --out), `examples.debug_stepper`, and `examples.build_maps` on a
+    hill cloud made as the `build` phase makes one, written to
+    maps/hill.pcd and read by the C++ reader, with its CSV cache read back
+    by the C++."""
+    import tempfile
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import scene_config
+    from uneven_planner_tpu_torch.examples import (build_maps, debug_stepper,
+                                                   plan_demo)
+    from uneven_planner_tpu_torch.terrain import io, mesh
+    from uneven_planner_tpu_torch.utils import native
+    fails, launches, out = [], {}, dict(card=smi)
+    printed = lambda s: log("#   " + s)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        traj_csv = os.path.join(tmp, "traj.csv")
+        r = plan_demo.run(track=True, out=traj_csv, cache_dir=tmp,
+                          device=device, log=printed)
+        launches["plan_demo"] = all_launches()
+        ok = r.res is not None
+        out["plan_demo"] = dict(
+            wall_s=time.perf_counter() - t0,
+            search_success=bool(r.kres.success[0]),
+            search_rounds=int(r.kres.rounds[0]),
+            converged=ok and bool(r.res.converged[0]),
+            outer_iters=int(r.res.outer_iters[0]) if ok else None,
+            inner_iters=int(r.res.inner_iters[0]) if ok else None,
+            lockstep_evaluations=r.res.steps if ok else None,
+            report=r.report, report_lines=r.lines,
+            mean_track_err_m=float(r.track.mean_err[0]) if ok else None,
+            exported_rows=len(_csv_rows(traj_csv, "x,y,z,yaw"))
+            if ok else 0)
+        d = out["plan_demo"]
+        if not d["search_success"] or not d["converged"]:
+            fails.append(f"plan_demo: search or nested solve failed: {d}")
+        elif not d["mean_track_err_m"] <= MAX_TRACK_ERR:
+            fails.append(f"plan_demo: tracking error {d['mean_track_err_m']}")
+        elif d["exported_rows"] != len(r.poses) or not d["exported_rows"]:
+            fails.append("plan_demo: the SE(3) CSV misses rows")
+
+        reset_all_launches()
+        t0 = time.perf_counter()
+        step_csv = os.path.join(tmp, "debug_iterates.csv")
+        s = debug_stepper.run(out=step_csv, device=device, log=printed)
+        launches["debug_stepper"] = all_launches()
+        rows = _csv_rows(step_csv, debug_stepper.COLUMNS)
+        out["debug_stepper"] = dict(
+            wall_s=time.perf_counter() - t0,
+            evaluations=int(s.rec["valid"].sum()),
+            outer_rounds=int(s.rec["outer"][s.rec["valid"]].max()) + 1,
+            csv_rows=len(rows))
+        if out["debug_stepper"]["evaluations"] < 1 \
+                or len(rows) != len(s.rows) or not len(rows):
+            fails.append(f"debug_stepper: {out['debug_stepper']}")
+
+        maps = os.path.join(tmp, "maps")
+        os.makedirs(maps)
+        raw, _ = build_cloud()
+        pcd = os.path.join(maps, "hill.pcd")
+        mesh.save_pcd(pcd, raw)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        b = build_maps.build_scene("hill", scene_config("hill").map,
+                                   out=tmp, csv=True, maps_dir=maps,
+                                   device=device, log=printed)
+        launches["build_maps"] = all_launches()
+        wall = time.perf_counter() - t0
+        data = b.grid.data.cpu()
+        back = native.map_csv_read(b.csv, b.grid.voxel_num)
+        out["build_maps"] = dict(
+            wall_s=wall, load_s=b.load_s, build_s=b.build_s,
+            cloud_points=b.n_points,
+            cpp_reader_points=len(native.pcd_load(pcd)),
+            npz_equal=bool(np.array_equal(io.load_map_npz(b.npz),
+                                          data.numpy())),
+            csv_max_abs_err=float(np.abs(back - data.double().numpy()).max()),
+            csv_mb=os.path.getsize(b.csv) / 2 ** 20,
+            finite=bool(torch.isfinite(data).all()))
+        d = out["build_maps"]
+        if not d["npz_equal"] or not d["finite"]:
+            fails.append(f"build_maps: the npz cache is not the map: {d}")
+        if not d["csv_max_abs_err"] <= 1e-12:
+            fails.append(f"build_maps: CSV round trip {d['csv_max_abs_err']}")
+        if d["cloud_points"] != d["cpp_reader_points"]:
+            fails.append("build_maps did not read the cloud with the C++")
+    out["launches"] = launches
+    log("# demo " + json.dumps(out))
+    for name in ("terrain_tv_packed16", "terrain_tv_pair", "gather_rows",
+                 *K4_FAMILY, "admm_iterations"):
+        if launches["plan_demo"][name] == 0:
+            fails.append(f"{name} was never launched by plan_demo")
+    if launches["debug_stepper"]["terrain_tv_pair"] == 0:
+        fails.append("terrain_tv_pair was never launched by debug_stepper")
+    if launches["build_maps"]["gather_rows"] == 0:
+        fails.append("gather_rows was never launched by build_maps")
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    return out
 
 
 def kernel_entries(r):
@@ -3579,6 +4016,13 @@ def kernel_entries(r):
             want_jac=v["want_jac"], dtype="float64",
             other_shapes=[{k: w[k] for k in keys} for w in rows
                           if w is not v]))
+    # every kernel's launches on the user entry points (`demo`: plan_demo,
+    # debug_stepper, build_maps, each counted alone) and in the oracles'
+    # runs (`oracle`)
+    demo, oracle = r["demo"]["launches"], r["oracle"]["launches"]
+    for e in entries:
+        e["launches_demo"] = {k: v[e["name"]] for k, v in demo.items()}
+        e["launches_oracle"] = oracle[e["name"]]
     return entries
 
 
@@ -3671,6 +4115,8 @@ def main(argv=None) -> int:
         "bench-track": lambda: phase_bench_track(dev, smi),
         "precision": lambda: phase_precision(dev, smi),
         "scene-eval": lambda: phase_scene_eval(dev, smi),
+        "oracle": lambda: phase_oracle(dev, smi),
+        "demo": lambda: phase_demo(dev, smi),
     }
     r = {}
     for name in phases:

@@ -210,3 +210,23 @@ def test_solve_flat_split_packed_matches_exact_population():
     res_exact = torch.clamp(torch.maximum(rh, rg), min=0.0).numpy()
     viol = res_exact[cs] > CFG.epsilon_con * 1.05
     assert viol.mean() < 0.05, res_exact[cs].max()
+
+
+def test_init_guess_fixed_takes_int_k_as_jax():
+    """`manager.init_guess_fixed(..., int_K=...)`, a JAX call the port must
+    take: accepted and unused, the guess equal to the JAX package's."""
+    from uneven_planner_tpu import manager as jmanager
+    from uneven_planner_tpu_torch import manager
+    from uneven_planner_tpu_torch.config import ManagerConfig
+    t = np.linspace(0, 1, 16)[:, None]
+    path = np.concatenate([(1 - t) * np.array([-3.0, -3.0])
+                           + t * np.array([-0.5, -1.0]),
+                           np.full((16, 1), 0.7)], axis=1)
+    want = jmanager.init_guess_fixed(path, ManagerConfig(), 6, 12, int_K=8)
+    for k in (8, 16):
+        x0, bound = manager.init_guess_fixed(path, ManagerConfig(), 6, 12,
+                                             int_K=k)
+        np.testing.assert_array_equal(x0, np.asarray(want[0]))
+        for f in talm.Boundary._fields:
+            np.testing.assert_array_equal(getattr(bound, f),
+                                          np.asarray(getattr(want[1], f)))

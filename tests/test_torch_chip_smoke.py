@@ -26,11 +26,12 @@ def _chip_smoke():
 def test_phases_default_is_every_phase():
     cs = _chip_smoke()
     assert cs.parse_phases([]) == list(cs.PHASES)
-    assert len(cs.PHASES) == 21 and len(set(cs.PHASES)) == 21
-    assert cs.PHASES[-5] == "build"
-    assert cs.PHASES[-8:-5] == ("nested-reference", "nested", "packed")
-    assert cs.PHASES[-4:] == ("dist", "bench-track", "precision",
-                              "scene-eval")
+    assert len(cs.PHASES) == 23 and len(set(cs.PHASES)) == 23
+    assert cs.PHASES[-7] == "build"
+    assert cs.PHASES[-10:-7] == ("nested-reference", "nested", "packed")
+    assert cs.PHASES[-6:-2] == ("dist", "bench-track", "precision",
+                                "scene-eval")
+    assert cs.PHASES[-2:] == ("oracle", "demo")
 
 
 @pytest.mark.parametrize("arg,want", [
@@ -43,7 +44,9 @@ def test_phases_default_is_every_phase():
     ("packed,nested,nested-reference",
      ["nested-reference", "nested", "packed"]),
     ("scene-eval,precision,dist,bench-track,terrain",
-     ["terrain", "dist", "bench-track", "precision", "scene-eval"])])
+     ["terrain", "dist", "bench-track", "precision", "scene-eval"]),
+    ("demo,oracle,scene-eval", ["scene-eval", "oracle", "demo"]),
+    ("demo,admm", ["admm", "demo"])])
 def test_phases_subset(arg, want):
     assert _chip_smoke().parse_phases(["--phases", arg]) == want
 

@@ -209,7 +209,7 @@ def test_multiprocess_two_hosts():
     processes is 2 x the local unsharded run's, and x is within the JAX
     test's 1e-2 of it.  The launch has its own 300 s limit."""
     out = dist.launch_local(_MP_WORKER, num_processes=2, local_devices=4,
-                            timeout=300.0)
+                            timeout=300.0, device="cpu")
     for rc, stdout in out:
         assert rc == 0, stdout[-2000:]
         assert "WORKER_OK" in stdout, stdout[-2000:]

@@ -111,7 +111,38 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_port_modules_import_no_jax():
+    """Every module of the package (found by walking it, the examples and
+    the host oracles included) and chip_smoke.py import neither JAX nor
+    the JAX package."""
+    code = (
+        "import importlib, importlib.util, pkgutil, sys\n"
+        "import uneven_planner_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for m in names: importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        "'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'uneven_planner_tpu')]\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 50 else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for name in ("utils.native", "utils.qp_ref", "examples.plan_demo",
+                 "examples.debug_stepper", "examples.build_maps"):
+        assert os.path.exists(os.path.join(
+            REPO, "uneven_planner_tpu_torch", *name.split(".")) + ".py")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                           tmp_path):
+    from uneven_planner_tpu_torch.bench import scaling
+    from uneven_planner_tpu_torch.examples import (build_maps,
+                                                   debug_stepper, plan_demo)
+    from uneven_planner_tpu_torch.parallel import distributed
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_synthetic_grid(TEST_CFG)
@@ -120,3 +151,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         headline.make_batch(2, scene_config("hill"), HC.shape,
                             np.random.default_rng(0))
+    # forks nothing: the device is resolved before any process starts
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.launch_local("raise SystemExit(3)", num_processes=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scaling.run_multiprocess(1, 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plan_demo.run(TEST_CFG, cache_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        debug_stepper.run(TEST_CFG, out=str(tmp_path / "d.csv"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_maps.build_scene("hill", TEST_CFG, out=str(tmp_path),
+                               maps_dir=str(tmp_path))

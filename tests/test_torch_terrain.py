@@ -549,3 +549,16 @@ def test_se3_lift(grids):
     np.testing.assert_allclose(yaws, poses[:, 2], atol=1e-9)
     np.testing.assert_allclose(p3[:, 2], hill_height(poses[:, 0], poses[:, 1]),
                                atol=3e-2)
+
+
+@pytest.mark.parametrize("roughness", [0.0, 0.05])
+def test_synthetic_hill_roughness_matches_jax(roughness):
+    """`make_synthetic_grid(cfg, roughness)` (tests/test_pipeline.py:126
+    passes it): the JAX package's field and occupancy bit for bit."""
+    want = jax_hill_grid(TEST_CFG, roughness=roughness, dtype=np.float64)
+    got = make_synthetic_grid(MapConfig(xy_resolution=0.2,
+                                        yaw_resolution=0.45),
+                              roughness, device="cpu")
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    np.testing.assert_array_equal(got.occ.numpy(), np.asarray(want.occ))
+    assert (got.data[..., 1].max() > 0) == (roughness > 0)

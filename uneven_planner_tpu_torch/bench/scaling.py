@@ -70,13 +70,15 @@ def timed(run, *args):
 
 
 def run_multiprocess(nprocs: int, local_devices: int, b_local: int,
-                     out_path: str | None = None, device: str = "cpu",
+                     out_path: str | None = None, device: str | None = None,
                      shape=(10, 20, 16), map_res=(0.05, 0.1),
                      overrides=None, timeout: float = 1800.0) -> list:
     """For n = 1..nprocs, n processes (`launch_local`), each solving
-    `b_local` scenarios of its own over its devices with the counts summed
-    across processes; returns and prints each n's solves/s and efficiency,
-    and with `out_path` writes the sweep as JSON."""
+    `b_local` scenarios of its own over its devices (`device` None or
+    "cuda": a card each, raising without CUDA; "cpu": `local_devices` CPU
+    shards each) with the counts summed across processes; returns and
+    prints each n's solves/s and efficiency, and with `out_path` writes
+    the sweep as JSON."""
     body = _MP_BENCH_WORKER.format(
         res=map_res[0], yres=map_res[1], shape=tuple(shape),
         b_local=b_local,

@@ -12,11 +12,11 @@ on them, retries the failed lanes once with easier settings, and reports:
     post-solve report (max |vx|, |ax|, |ay|, |kappa|, min cos_xi, max sigma;
     ALMTrajOpt::getMaxVxAxAyCurAttSig, alm_traj_opt.h:170-229) over the
     converged lanes,
-  - the closed-loop mean and final tracking error.
-
-The JAX harness also asks the C++ A* oracle which scenarios are feasible;
-that oracle belongs to the JAX package's tests and is not part of this
-package, so its keys are None here.
+  - the closed-loop mean and final tracking error,
+  - which scenarios the C++ A* oracle (`utils/native.kino_astar_plan`, the
+    reference's kino_astar.cpp:67-236 on the host over the same grid and
+    front-end settings) finds feasible, and the front end's and the
+    pipeline's success shares on those.
 
     python -m uneven_planner_tpu_torch.bench.scene_eval [--scenes hill]
         [--batch 64] [--out SCENES.json]
@@ -38,6 +38,7 @@ from uneven_planner_tpu_torch.minco.traj import SE2Traj, max_metrics
 from uneven_planner_tpu_torch.parallel import pipeline
 from uneven_planner_tpu_torch.solver import alm
 from uneven_planner_tpu_torch.terrain import grid as tgrid
+from uneven_planner_tpu_torch.utils import native
 
 
 def sample_free_scenarios(occ_xy: np.ndarray, map_cfg, B: int, rng,
@@ -192,6 +193,16 @@ def run_scene(name: str, B: int = 64, cache_dir: str = "data",
     trk_bad = ok & ~np.isfinite(res["mean_track_err"])
     ok = ok & ~trk_bad
 
+    # kinodynamic feasibility by the exact-semantics C++ A*: blind-sampled
+    # scenarios can be unreachable under the curvature and occupancy
+    # constraints, where the reference aborts too, so the rates are also
+    # reported on the feasible subset (raises when the oracle cannot build)
+    feasible = np.array([
+        native.kino_astar_plan(grid, scfg.frontend, starts[i], goals[i])
+        is not None for i in range(B)])
+    on_feasible = lambda a: float(a[feasible].mean()) if feasible.any() \
+        else None
+
     mm = {k: v.cpu().numpy() for k, v in max_metrics(
         res["traj"], grid, num_samples=1024).items()}
     conv = res["alm_converged"]
@@ -223,9 +234,9 @@ def run_scene(name: str, B: int = 64, cache_dir: str = "data",
         },
         "retried_lanes": n_retry,
         "retry_recovered": retried_ok,
-        "oracle_feasible_rate": None,
-        "frontend_success_on_feasible": None,
-        "pipeline_success_on_feasible": None,
+        "oracle_feasible_rate": float(feasible.mean()),
+        "frontend_success_on_feasible": on_feasible(res["plan_success"]),
+        "pipeline_success_on_feasible": on_feasible(ok),
         "res_h_p95": float(np.percentile(res["res_h"], 95)),
         "res_g_p95": float(np.percentile(res["res_g"], 95)),
         "pipeline_success_rate": float(ok.mean()),

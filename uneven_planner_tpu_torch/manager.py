@@ -91,10 +91,11 @@ def _boundary(path: np.ndarray, cfg: ManagerConfig) -> Boundary:
 
 
 def init_guess_fixed(path: np.ndarray, cfg: ManagerConfig,
-                     piece_xy: int, piece_yaw: int
+                     piece_xy: int, piece_yaw: int, int_K: int = 16
                      ) -> Tuple[np.ndarray, Boundary]:
     """Fixed-piece-count init guess for batched solving: inner points at
-    equal arc-length fractions."""
+    equal arc-length fractions.  `int_K` (samples a piece) does not enter
+    the guess; it is accepted as the JAX package's signature has it."""
     path = smooth_yaw_path(np.asarray(path, dtype=np.float64))
     arcs = _arc_lengths(path)
     total_len = arcs[-1]

@@ -232,19 +232,20 @@ def free_port() -> int:
 
 def launch_local(worker_body: str, num_processes: int = 2,
                  local_devices: int = 4, timeout: float = 600.0,
-                 port: Optional[int] = None, device: str = "cpu"):
+                 port: Optional[int] = None, device: Optional[str] = None):
     """Fork `num_processes` processes on this machine, each running
     `worker_body` (Python source, run after `initialize` with `pid` and
     `nprocs` in scope, then `shutdown`), and return [(returncode, output)]
     a process.  Each process imports torch and this package only, runs
     PyTorch on one thread (OMP_NUM_THREADS=1, `torch.set_num_threads(1)`)
     and holds `local_devices` CPU shards (`device="cpu"`, gloo) or card
-    `pid` (`device="cuda"`, NCCL, one rank a card).  A process still
-    running after `timeout` seconds is killed and counts as failed."""
+    `pid` (`device=None` or `"cuda"`, NCCL, one rank a card; raises
+    without CUDA).  A process still running after `timeout` seconds is
+    killed and counts as failed."""
     port = port or free_port()
     if device == "cpu":
         locals_ = lambda pid: ",".join(["cpu"] * local_devices)
-    elif device == "cuda":
+    elif device is None or device == "cuda":
         resolve_device(None)
         if num_processes > torch.cuda.device_count():
             raise ValueError(f"{num_processes} NCCL ranks need as many "

@@ -30,9 +30,10 @@ def hill_height(x, y):
 ROUGHNESS = 0.012
 
 
-def hill_data(cfg: MapConfig, dtype=np.float64) -> np.ndarray:
+def hill_data(cfg: MapConfig, dtype=np.float64,
+              roughness: float = ROUGHNESS) -> np.ndarray:
     """[Nx, Ny, Nyaw, 4] RXS2 buffer: zb from the surface normal, sigma a
-    smooth pseudo-roughness with mild yaw dependence."""
+    smooth pseudo-roughness (peak `roughness`) with mild yaw dependence."""
     nx, ny, nyaw = cfg.voxel_num
     ox, oy, oyaw = cfg.map_origin
     xs = (np.arange(nx) + 0.5) * cfg.xy_resolution + ox
@@ -46,7 +47,7 @@ def hill_data(cfg: MapConfig, dtype=np.float64) -> np.ndarray:
     dzdy = (hill_height(X, Y + eps) - hill_height(X, Y - eps)) / (2 * eps)
     norm = np.sqrt(dzdx ** 2 + dzdy ** 2 + 1.0)
     slope2 = dzdx ** 2 + dzdy ** 2
-    sigma_xy = ROUGHNESS * slope2 / (1.0 + slope2)
+    sigma_xy = roughness * slope2 / (1.0 + slope2)
 
     data = np.zeros((nx, ny, nyaw, 4), dtype=dtype)
     data[..., 0] = Z[:, :, None]
@@ -56,12 +57,13 @@ def hill_data(cfg: MapConfig, dtype=np.float64) -> np.ndarray:
     return data
 
 
-def make_synthetic_grid(cfg: MapConfig | None = None, dtype=np.float64,
+def make_synthetic_grid(cfg: MapConfig | None = None,
+                        roughness: float = ROUGHNESS, dtype=np.float64,
                         device=None) -> tgrid.TerrainGrid:
     """Analytic hill TerrainGrid on `device` (None -> CUDA)."""
     cfg = cfg or MapConfig()
     dev = resolve_device(device)
-    data = torch.from_numpy(hill_data(cfg, dtype)).to(dev)
+    data = torch.from_numpy(hill_data(cfg, dtype, roughness)).to(dev)
     return tgrid.from_buffers(
         data, min_cnormal=cfg.min_cnormal, max_rho=cfg.max_rho,
         xy_resolution=cfg.xy_resolution, yaw_resolution=cfg.yaw_resolution,
