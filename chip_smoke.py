@@ -9,8 +9,9 @@ Phases, each of which must pass (exit code 1 otherwise):
               limit from nvidia-smi;
   2. build    the terrain-lookup, gather, elementwise and ADMM kernels,
               compiled with nvcc from uneven_planner_tpu_torch/csrc, and
-              the parent commit's K2 and K4 (chip_studies/k2_before.cu,
-              k4_before.cu, for the same-call comparison), all compilers
+              K2, K4 and K3's word path as they were before their
+              redesigns (chip_studies/k2_before.cu, k4_before.cu,
+              k3_before.cu, for the same-call comparison), all compilers
               at once;
   3. kernels  each kernel against its plain PyTorch twin, timed beside the
               twin, its bound and (where one exists) the PyTorch library
@@ -20,8 +21,11 @@ Phases, each of which must pass (exit code 1 otherwise):
               modes, the gathers at the TPU probes' shapes, the planning
               path's, the pipeline's and the tracking path's (K4 also on
               several arrays at one index, on the walk back through the
-              search's arena, and on the inputs of one real hill search),
-              K2 and K4 beside the parent's kernels, tanh_affine
+              search's arena, and on the inputs of one real hill search;
+              K3 also at probe B's own shape, on 24-byte rows and on views
+              off 16-byte alignment, with the sector floor of its rows),
+              K2, K4 and K3's word path beside their kernels before the
+              redesign, tanh_affine
               at the TPU probe's shape and at a large one, the ADMM loop on
               the QPs of a real tracking tick (256 lanes, warm-started) and
               on random box QPs, with a split run held bit for bit, and its
@@ -66,8 +70,9 @@ Phases, each of which must pass (exit code 1 otherwise):
               the same ticks, QP iteration statistics, launch counts;
  13. pipeline the plan -> track path at full width: plan_track_batch on 64
               scenarios x 500 ticks; scenarios/s, planned-and-converged
-              share, tracking error; then search, solve and tracking once
-              more, each alone, for the split of the time;
+              share, tracking error; then search, solve and the first 100
+              ticks of the tracking once more, each alone, for the split
+              of the time;
  14. nested-reference  the reference's nested solve on 8 lanes of a
               coarse grid: alm.solve, solve_compacted and debug_iterates
               on the card (kernels) against the port on the CPU (plain
@@ -85,9 +90,10 @@ Phases, each of which must pass (exit code 1 otherwise):
               a headline batch on that table with the headline's gates;
  17. build    the map builder at full width: a hill cloud (the surface
               triangulated at 1 cm, 300,000 samples, 40 trunks) written as
-              a PCD, read back through io.load_scene_cloud, built twice with
+              a PCD, read back through io.load_scene_cloud, built once with
               build.construct_map on the hill map (200 x 200 x 64 cells, 2
-              iterations) with K3's launches counted; the map against the
+              iterations) with K3's launches counted, and a 4 x 4 m crop of
+              it under the profiler; the map against the
               surface, the fits against a brute-force oracle, the three modes
               on a 4 x 4 m crop, the card against the CPU on a 1.6 x 1.6 m
               crop, K3 at the build's two reads, 256 plans on the built
@@ -199,6 +205,8 @@ MPC_LANES, MPC_TICKS = 256, 256
 MPC_FULL_TICKS = 64
 ADMM_F64_LANES = 64
 PIPE_LANES, PIPE_TICKS = 64, 500
+# the ticks the pipeline phase tracks again alone, for the split of the time
+PIPE_SPLIT_TICKS = 100
 MAX_TRACK_ERR = 0.05      # metres, mean over a lane's pre-goal ticks
 # the full and the condensed QP share one optimum: their tracking errors
 # over the same ticks may differ by at most this (metres)
@@ -218,6 +226,8 @@ BUILD_LIFT = 0.1
 BUILD_SAMPLES = 300_000
 BUILD_TRUNKS = 40
 TRUNK_BOX = ((2.5, 4.5), (-4.5, -2.5))
+# the map the build phase profiles: a 4 x 4 m crop at the hill's resolution
+PROFILE_CROP_SIZE = (4.0, 4.0)
 # built z against the surface at each cell's probe point (metres)
 MAX_Z_ERR_MEDIAN = 0.002
 MAX_Z_ERR_P99 = 0.03
@@ -297,14 +307,30 @@ def nvidia_smi_line() -> str:
 # timing
 # ---------------------------------------------------------------------------
 
+# the device time (ms) one `device_ms` reading may spend on the function
+TIMING_BUDGET_MS = 400.0
+
+
 def device_ms(fn, reps=25, inner=10):
     """Median device time of one fn() call: `inner` calls captured in a CUDA
     graph, replayed `reps` times between CUDA events, so host launch cost is
-    not counted."""
+    not counted.  A function whose one call would make the reading cost
+    more than TIMING_BUDGET_MS (the plain twins, mostly) is captured once a
+    graph and replayed fewer times, at least 5."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    one = a.elapsed_time(b)
+    if one * inner * (reps + 1) > TIMING_BUDGET_MS:
+        inner = 1
+        reps = max(5, min(reps, int(TIMING_BUDGET_MS / max(one, 1e-6))))
     g = torch.cuda.CUDAGraph()
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
@@ -347,6 +373,15 @@ def device_ms_cold(fn, reps=25, inner=10):
     return max(both - device_ms(flush, reps, inner), 0.0)
 
 
+def device_profile():
+    """A torch.profiler run that records the card's activity alone: every
+    profile here reads device time by kernel, and recording each host
+    operation too made the map build's profiled build (~90,000 operations)
+    take over a minute of the profiler's own processing."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -364,18 +399,20 @@ def phase_device():
     return dev, smi
 
 
-# K2 and K4 as they were before their redesign (the parent commit's
-# sources, copied under chip_studies/), built beside the package's kernels
-# and timed in the same call as the redesigned ones; on no path
+# K2, K4 and K3's word path as they were before their redesign (the
+# sources of the commit before each redesign, copied under chip_studies/),
+# built beside the package's kernels and timed in the same call as the
+# redesigned ones; on no path
 BEFORE_SOURCES = {"k2_before": "chip_studies/k2_before.cu",
-                  "k4_before": "chip_studies/k4_before.cu"}
+                  "k4_before": "chip_studies/k4_before.cu",
+                  "k3_before": "chip_studies/k3_before.cu"}
 _before = {}
 
 
 def before_library(name):
     """The loaded library of BEFORE_SOURCES[name], with the C interface
     its source had: K2's terrain_tv_pair without index width or layout,
-    K4's gather_along on one array."""
+    K4's gather_along on one array, K3's gather_rows with the word alone."""
     import ctypes
     from uneven_planner_tpu_torch.kernels import build
     if name not in _before:
@@ -387,6 +424,9 @@ def before_library(name):
                 lib.terrain_tv_pair.argtypes = [p] * 6 + [i] + [i] * 3 \
                     + [f] * 11 + [i, p]
                 lib.terrain_tv_pair.restype = i
+            elif name == "k3_before":
+                lib.gather_rows.argtypes = [p, p, p, ll, ll, i, i, i, p]
+                lib.gather_rows.restype = i
             else:
                 lib.gather_along.argtypes = [p, p, p, ll, i, ll, ll, ll, ll,
                                              i, i, p]
@@ -412,8 +452,8 @@ def phase_build():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log("#   " + ln.strip())
     log(f"# build: {dt:.1f} s for {len(libs)} libraries (the last "
-        f"{len(BEFORE_SOURCES)} the parent's K2 and K4, for comparison), "
-        "compiled side by side")
+        f"{len(BEFORE_SOURCES)} K2, K4 and K3's word path before their "
+        "redesigns, for comparison), compiled side by side")
     return dt
 
 
@@ -781,7 +821,6 @@ def phase_profile(ctx, steps=16):
     """Kernel time by name and device busy share over `steps` solver steps
     at full width (state after one chunk of the timed batch)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from uneven_planner_tpu_torch.solver import alm
     from uneven_planner_tpu_torch.utils import profiling
     cfg, grid, hc, batch, warm_for = ctx
@@ -791,8 +830,7 @@ def phase_profile(ctx, steps=16):
     st = alm.flat_init(x0, hc.shape, cfg.alm, p, warm_for(feats))
     st, _ = alm.flat_run(st, bnd, scal, hc.shape, grid, cfg.alm, p, 8)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             st = alm.flat_step(st, bnd, scal, hc.shape, grid, cfg.alm, p)
@@ -855,6 +893,42 @@ def _k4_before(lib, x, idx, axis=1):
     if err:
         raise RuntimeError(f"the parent's K4 failed to launch ({err})")
     return out
+
+
+def _k3_before(lib, table, idx):
+    """K3's word path before its redesign (one thread per output word), on
+    any table, with the word rule it had: 16 bytes where the row is a
+    multiple of 16 and table and output are 16-byte aligned, else the
+    element's width."""
+    import torch
+    out = torch.empty((idx.shape[0],) + tuple(table.shape[1:]),
+                      dtype=table.dtype, device=table.device)
+    elem = table.element_size()
+    row = elem * (table.shape[1] if table.dim() == 2 else 1)
+    word = 16 if row % 16 == 0 and table.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0 else elem
+    err = lib.gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                          idx.shape[0], table.shape[0], row, word,
+                          int(idx.dtype == torch.int64),
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the earlier K3 failed to launch ({err})")
+    return out
+
+
+def k3_sector_floor_ms(clipped, row_bytes, idx_bytes):
+    """The least time of K3 on rows that scatter: the indices in and the
+    rows out once each, and every distinct 32-byte sector of the table that
+    the (clipped) rows touch read once.  Also the count of those sectors."""
+    import torch
+    rows = torch.unique(clipped)
+    first = rows * row_bytes // 32
+    last = (rows * row_bytes + row_bytes - 1) // 32
+    k = torch.arange((row_bytes + 31) // 32 + 1, device=rows.device)
+    span = first[:, None] + k
+    sectors = int(torch.unique(span[span <= last[:, None]]).numel())
+    nbytes = clipped.numel() * (idx_bytes + row_bytes) + sectors * 32
+    return nbytes / PEAK_BYTES * 1e3, sectors
 
 
 def host_ms(fn, reps=15):
@@ -996,38 +1070,66 @@ def phase_gather_kernels(device):
              f32, "f32")]
         for n_p, dim in pieces]
     m_occ_pipe = PIPE_LANES * (10240 * 3 + 1024 * 64)
-    for label, table, M, idt in [
+    # Beside the main paths' shapes: probe B's own ([1024, 128] by 256), a
+    # 24-byte row at e1 C2's index count (8-byte words), and two views one
+    # element off 16-byte alignment (`offsets`: index, output), for indices
+    # off their vector alignment and an output that takes 4-byte words.
+    # Word-path rows are timed beside K3 before its redesign (`ms_parent`)
+    # and against the sector floor of the rows they touch.
+    k3_before = before_library("k3_before").load()
+    for label, table, M, idt, offsets in [
             ("e1_gather C: [32768, 8] f32", rand((32768, 8)), 2785280,
-             torch.int32),
+             torch.int32, None),
             ("e1_gather C2: [131072] f32", rand((131072,)), 2785280,
-             torch.int32),
+             torch.int32, None),
             ("e31 B/C: [1024, 128] f32", rand((1024, 128)), 184320,
-             torch.int32),
+             torch.int32, None),
+            ("e31 B: [1024, 128] f32 by 256", rand((1024, 128)), 256,
+             torch.int32, None),
+            ("24-byte rows: [131072, 6] f32", rand((131072, 6)), 2785280,
+             torch.int32, None),
+            ("e1_gather C2, index and output one element in: [131072] f32",
+             rand((131072,)), 2785280, torch.int32, (1, 1)),
+            ("e1_gather C2, output one element in: [131072] f32",
+             rand((131072,)), 2785280, torch.int32, (0, 1)),
             ("path occupancy: [40000] bool",
              torch.rand(n_occ, generator=gen).to(device) < 0.1, m_occ,
-             torch.int32),
+             torch.int32, None),
             ("pipeline occupancy: [40000] bool",
              torch.rand(n_occ, generator=gen).to(device) < 0.1, m_occ_pipe,
-             torch.int32),
+             torch.int32, None),
             ("path RXS2 rows: [2560000, 4] f32", rand((200 * 200 * 64, 4)),
-             PLAN_BATCH * 4096 * 8, torch.int32),
+             PLAN_BATCH * 4096 * 8, torch.int32, None),
             ("pipeline RXS2 rows: [2560000, 4] f32",
              rand((200 * 200 * 64, 4)), PIPE_LANES * 4096 * 8,
-             torch.int32)] + [
-            (label, rand(shape).to(dtype), M, torch.int64)
+             torch.int32, None)] + [
+            (label, rand(shape).to(dtype), M, torch.int64, None)
             for label, shape, M, dtype in track_rows]:
         N = table.shape[0]
-        idx = _edge_indices(N, (M,), 11, idt, device)
+        io, oo = offsets or (0, 0)
+        idx = _edge_indices(N, (M + io,), 11, idt, device)[io:]
+        out = torch.empty((M + oo,) + tuple(table.shape[1:]),
+                          dtype=table.dtype, device=device)[oo:]
         clipped = idx.long().clamp(0, N - 1)
         row = table.element_size() * (table.shape[1] if table.dim() == 2
                                       else 1)
-        run("gather_rows", label,
-            lambda: gather.gather_rows(table, idx),
+        kern = (lambda: gather.gather_rows(table, idx)) if offsets is None \
+            else (lambda: gather._launch_rows(table, idx, out))
+        word = {}
+        if not gather.uses_shared_table(table):
+            floor, sectors = k3_sector_floor_ms(clipped, row,
+                                                idx.element_size())
+            word = dict(parent=lambda: _k3_before(k3_before, table, idx),
+                        sector_floor_ms=floor, sectors=sectors,
+                        route=dict(word=gather.rows_word(
+                            row, table.element_size(), table.data_ptr(),
+                            kern().data_ptr())))
+        run("gather_rows", label, kern,
             lambda: gather.gather_rows_twin(table, idx),
             lambda: torch.index_select(table, 0, clipped),
             M * (idx.element_size() + row) + min(N, M) * row,
-            cold=N * row > 25e6)
-        del table, idx, clipped
+            cold=N * row > 25e6, **word)
+        del table, idx, clipped, out
 
     # K4 gather_along: x [B, N], idx [B, K] (axis 1) or x [N, C], idx [K, C].
     # The tracking rows are `locate_piece`'s reads of the cumulative piece
@@ -1441,7 +1543,6 @@ def phase_plan_profile(ctx):
     """Kernel time by name, the device's busy share and the launches per
     round over one full-width search."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from uneven_planner_tpu_torch.frontend import kino_init
     from uneven_planner_tpu_torch.kernels import gather
     from uneven_planner_tpu_torch.utils import profiling
@@ -1449,8 +1550,7 @@ def phase_plan_profile(ctx):
     to = lambda a: torch.as_tensor(a, device=grid.device)
     torch.cuda.synchronize()
     gather.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         k = kino_init.plan(grid, cfg.frontend, to(starts), to(goals))
         rounds = int(k.rounds.max())
@@ -1476,7 +1576,7 @@ def phase_plan_profile(ctx):
                    name: dict(device_ms=sum(u for u, k, _ in rows
                                             if name in k) / 1e3,
                               calls=sum(c for _, k, c in rows if name in k))
-                   for name in ("tv_packed16_", "gather_rows_kernel",
+                   for name in ("tv_packed16_", "gather_rows_words_kernel",
                                 "gather_bytes_smem_kernel",
                                 "gather_along_kernel",
                                 "walk_parents_kernel")},
@@ -2142,7 +2242,6 @@ def phase_mpc(device, smi):
     profile of a few ticks."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from uneven_planner_tpu_torch.config import scene_config
     from uneven_planner_tpu_torch.minco.traj import expand_traj
     from uneven_planner_tpu_torch.mpc import traj_msg
@@ -2172,8 +2271,7 @@ def phase_mpc(device, smi):
         s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
     n_prof = 4
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t1 = time.perf_counter()
         for _ in range(n_prof):
             s, _, _ = rollout.tick(lanes, s, cfg, 0.01, 3, None)
@@ -2295,7 +2393,10 @@ def phase_pipeline(device, smi):
     scenarios, ProblemShape(10, 20, int_K=8), L-BFGS memory 16 and 250
     iterations, 500 control ticks, 3 relinearisations, MPCConfig()
     defaults, fp32.  One fresh batch, timed and counted; then its three
-    stages once more, each alone, for the split of the time."""
+    stages once more, each alone, for the split of the time: the search and
+    the solve whole, the tracking over its first PIPE_SPLIT_TICKS ticks,
+    each tick's error held to the whole run's (the ticks of one closed loop
+    repeat in order, so a prefix checks the stage as the whole does)."""
     import numpy as np
     import torch
     from uneven_planner_tpu_torch import headline, manager
@@ -2334,17 +2435,19 @@ def phase_pipeline(device, smi):
     same = same and bool(torch.equal(ares.converged, res.alm_converged))
     t2 = time.perf_counter()
     tres = rollout.track_trajectory_batched(
-        res.traj, starts, cfg.mpc, PIPE_TICKS, max_sqp_iter=3,
+        res.traj, starts, cfg.mpc, PIPE_SPLIT_TICKS, max_sqp_iter=3,
         traj_batched=True)
-    drift = float((tres.mean_err - res.mean_track_err).abs().max())
+    drift = float((tres.errs - res.track.errs[:, :PIPE_SPLIT_TICKS]).abs()
+                  .max())
     t3 = time.perf_counter()
     secs = dict(search=t1 - t0, solve=t2 - t1, track=t3 - t2,
-                solver_steps=ares.steps, same_flags_as_the_whole_run=same,
-                max_mean_err_diff_to_the_whole_run=drift)
+                track_ticks=PIPE_SPLIT_TICKS, solver_steps=ares.steps,
+                same_flags_as_the_whole_run=same,
+                max_tick_err_diff_to_the_whole_run=drift)
     out = dict(
         scenarios=PIPE_LANES, ticks=PIPE_TICKS, card=smi,
         scenarios_per_s=PIPE_LANES / dt, wall_s=dt, stage_seconds=secs,
-        track_ms_per_tick=secs["track"] / PIPE_TICKS * 1e3,
+        track_ms_per_tick_first100=secs["track"] / PIPE_SPLIT_TICKS * 1e3,
         plan_success_share=float(res.plan_success.float().mean()),
         alm_converged_share=float(res.alm_converged.float().mean()),
         planned_and_converged_share=float(ok.mean()),
@@ -2697,7 +2800,6 @@ def phase_nested_profile(ctx, iterations=8):
     outer round of the full-width nested solve, its L-BFGS capped at
     `iterations` (30 lockstep evaluations on the hill at 8)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from uneven_planner_tpu_torch.solver import alm
     from uneven_planner_tpu_torch.utils import profiling
     cfg, grid, shape, x0, bound = ctx
@@ -2706,8 +2808,7 @@ def phase_nested_profile(ctx, iterations=8):
     scal = alm._make_scaling(x0, bound, shape, grid, cfg.alm)
     st = alm.init_state(x0, shape, cfg.alm)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         st, res = alm.outer_round(st, bound, scal, shape, grid, cfg.alm, p)
         torch.cuda.synchronize()
@@ -2772,13 +2873,16 @@ def phase_packed(device, smi):
         k2_exact=device_ms(lambda: kernels.terrain_tv_pair(
             grid.data_pair, geom, px, py, yaw, False)),
         k3=device_ms(k3))
+    floor, sectors = k3_sector_floor_ms(clipped, 48, 4)
+    k3_before = before_library("k3_before").load()
     k3_row = dict(
         name="gather_rows", shape=f"packed: bf16 items [{table.shape[0]}, "
         f"12] int32 by {n_idx} int32", equal=k3_equal,
         max_abs_err=0.0 if k3_equal else float("inf"), ms=times["k3"],
         plain_ms=device_ms(k3_twin), library_ms=device_ms(k3_lib),
         bound_ms=k3_bytes / PEAK_BYTES * 1e3, bound_by="bytes",
-        bytes=k3_bytes)
+        bytes=k3_bytes, sector_floor_ms=floor, sectors=sectors,
+        ms_parent=device_ms(lambda: _k3_before(k3_before, table, rows)))
     log("# kernel " + json.dumps(k3_row))
     out = dict(
         M=M, card=smi, max_abs_err_twin=e_twin[0],
@@ -2918,8 +3022,17 @@ def phase_map_build(device, smi):
     from uneven_planner_tpu_torch.terrain import grid as tgrid
     from uneven_planner_tpu_torch.terrain.synthetic import hill_height
     from uneven_planner_tpu_torch.utils import profiling
+    PROFILE_CROP = MapConfig(map_size_x=PROFILE_CROP_SIZE[0],
+                             map_size_y=PROFILE_CROP_SIZE[1])
     fails = []
     t0 = time.perf_counter()
+    # seconds of each step of the phase, for the split of its time
+    split, t_lap = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        split[name], t_lap[0] = round(now - t_lap[0], 2), now
+
     raw, centres = build_cloud()
     with tempfile.TemporaryDirectory() as tmp:
         maps = os.path.join(tmp, "maps")
@@ -2927,41 +3040,43 @@ def phase_map_build(device, smi):
         mesh.save_pcd(os.path.join(maps, "hillcloud.pcd"), raw)
         points = io.load_scene_cloud("hillcloud", maps)
         cloud_s = time.perf_counter() - t0
+        lap("cloud")
 
         cfg = scene_config("hill").map
         b3 = build.build_buckets3d(points, cfg, device="cpu")
         nx, ny, nyaw = cfg.voxel_num
         fits = nx * ny * nyaw * cfg.iter_num
-        builds, grid = [], None
-        for k in range(2):
-            if grid is not None:
-                del grid
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            gather.reset_launches()
-            t = {}
-            t1 = time.perf_counter()
-            grid = build.construct_map(points, cfg, device=device,
-                                       timings=t)
-            occ_share = float(grid.occ.float().mean())      # a host read
-            wall = time.perf_counter() - t1
-            builds.append(dict(
-                wall_s=wall, host_s=t["host_s"], device_s=t["device_s"],
-                fits_per_s=fits / wall,
-                k3_launches=gather.launches["gather_rows"],
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30))
+        # one timed build; the profiled build below repeats its dispatches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gather.reset_launches()
+        t = {}
+        t1 = time.perf_counter()
+        grid = build.construct_map(points, cfg, device=device, timings=t)
+        occ_share = float(grid.occ.float().mean())      # a host read
+        wall = time.perf_counter() - t1
+        builds = [dict(
+            wall_s=wall, host_s=t["host_s"], device_s=t["device_s"],
+            fits_per_s=fits / wall,
+            k3_launches=gather.launches["gather_rows"],
+            k3_word_launches=gather.launches["gather_rows_words"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)]
         data = grid.data
 
+        lap("timed_build")
         # one more build under the profiler: device time of the sweep by
-        # kernel, and the device's busy share of the sweep
-        from torch.profiler import ProfilerActivity, profile
+        # kernel, and the device's busy share of the sweep, on PROFILE_CROP
+        # at full resolution (the same dispatches, a sixth of them: the
+        # profiler's processing of the whole build's ~90,000 kernels took
+        # 24 s)
         t = {}
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            build.construct_map(points, cfg, device=device, timings=t)
+        with device_profile() as prof:
+            build.construct_map(points, PROFILE_CROP, device=device,
+                                timings=t)
         total, rows = profiling.device_time_by_kernel(prof)
-        k3 = [(u, c) for u, k, c in rows if "gather_rows_kernel" in k]
-        sweep_profile = dict(
+        k3 = [(u, c) for u, k, c in rows if "gather_rows_" in k]
+        sweep_profile_crop = dict(
+            map=[PROFILE_CROP.map_size_x, PROFILE_CROP.map_size_y],
             device_s_profiled=t["device_s"], device_ms=total / 1e3,
             device_busy_share=total / 1e6 / t["device_s"],
             device_calls=sum(c for _, _, c in rows),
@@ -2970,6 +3085,7 @@ def phase_map_build(device, smi):
                  for u, k, c in rows[:8]])
         del prof
 
+        lap("profiled_build")
         # z against the surface at each cell's probe point, away from the
         # trunks
         ox, oy, oyaw = cfg.map_origin
@@ -2990,7 +3106,7 @@ def phase_map_build(device, smi):
             trunks=BUILD_TRUNKS, bucket_capacity_K=int(b3.table.shape[1]),
             buckets=list(b3.nb), cells=[nx, ny, nyaw],
             iterations=cfg.iter_num, fits=fits, cloud_s=cloud_s,
-            builds=builds, sweep_profile=sweep_profile,
+            builds=builds, sweep_profile_crop=sweep_profile_crop,
             finite=bool(np.isfinite(host).all()),
             sigma_min=float(sig.min()), sigma_max=float(sig.max()),
             sigma_below_minus_1e6_cells=int((sig < -1e-6).sum()),
@@ -3010,6 +3126,7 @@ def phase_map_build(device, smi):
         if builds[0]["k3_launches"] == 0:
             fails.append("gather_rows was never launched by the build")
 
+        lap("surface_check")
         # the 3D fit at iteration 0 against the brute-force oracle, half the
         # cells near a trunk
         rng = np.random.default_rng(3)
@@ -3036,6 +3153,7 @@ def phase_map_build(device, smi):
             fails.append("3D fits disagree with the brute-force oracle")
         del b3d
 
+        lap("oracle")
         # the three modes on a 4 x 4 m crop at full resolution
         crop = MapConfig(map_size_x=4.0, map_size_y=4.0)
         modes = {m: build.construct_map(points, crop, mode=m,
@@ -3048,6 +3166,7 @@ def phase_map_build(device, smi):
             fails.append("the modes disagree")
         del modes
 
+        lap("modes")
         # the card against the port's own CPU build on a 1.6 x 1.6 m crop
         small = MapConfig(map_size_x=1.6, map_size_y=1.6)
         t1 = time.perf_counter()
@@ -3061,6 +3180,7 @@ def phase_map_build(device, smi):
                 or out["card_vs_cpu_median"] > TOL_BUILD_CARD_CPU_MEDIAN:
             fails.append("the card's build disagrees with the CPU's")
 
+        lap("card_vs_cpu")
         # K3 at the build's two reads, against its twin and index_select
         reads = []
         for label, (table, idx) in zip(
@@ -3074,6 +3194,10 @@ def phase_map_build(device, smi):
             distinct = int(torch.unique(idx).numel())
             nbytes = idx.numel() * (idx.element_size() + row) \
                 + distinct * row
+            floor, sectors = k3_sector_floor_ms(
+                idx.long().clamp(0, table.shape[0] - 1), row,
+                idx.element_size())
+            k3_before = before_library("k3_before").load()
             v = dict(name="gather_rows",
                      shape=f"{label}: [{table.shape[0]}, {table.shape[1]}] "
                      f"{str(table.dtype)[6:]} by [{idx.numel()}] "
@@ -3083,6 +3207,9 @@ def phase_map_build(device, smi):
                      library_ms=device_ms(lib),
                      bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
                      bytes=nbytes, distinct_rows=distinct,
+                     sector_floor_ms=floor, sectors=sectors,
+                     ms_parent=device_ms(
+                         lambda: _k3_before(k3_before, table, idx)),
                      launches_per_build=builds[0]["k3_launches"] // 2)
             log("# kernel " + json.dumps(v))
             reads.append(v)
@@ -3090,6 +3217,7 @@ def phase_map_build(device, smi):
                 fails.append(f"K3 differs from its twin on the {label}")
         out["k3_reads"] = reads
 
+        lap("k3_reads")
         # plan on the built map, with both tables
         scfg = scene_config("hill")
         pgrid = tgrid.with_packed_f16(tgrid.with_pair_table(grid))
@@ -3115,6 +3243,7 @@ def phase_map_build(device, smi):
             fails.append(f"{len(faults)} path faults on the built map")
         del pgrid, kres, ares
 
+        lap("plan")
         # the npz cache under a point-cloud scene's name
         cache = os.path.join(tmp, "cache")
         os.makedirs(cache)
@@ -3124,6 +3253,8 @@ def phase_map_build(device, smi):
         out["cache_round_trip_equal"] = bool(torch.equal(loaded.data, data))
         if not out["cache_round_trip_equal"]:
             fails.append("the npz cache does not give the map back")
+        lap("cache")
+        out["split_s"] = split
     log("# build " + json.dumps(out))
     if fails:
         raise RuntimeError("; ".join(fails))
@@ -3148,9 +3279,9 @@ def phase_dist(device, smi):
     tcp://127.0.0.1, and `plan_batch_global` solves the full-width headline
     batch (4096 lanes, `headline.scene_setup()`, ProblemShape(10, 20, 8),
     memory 8, 30 iterations, `solve_flat`) beside the unsharded
-    `alm.solve_flat` on the same inputs, in the order unsharded, sharded,
-    sharded, unsharded (each path's first call, then its second, in
-    mirrored order).  Every lane of every call must equal the first
+    `alm.solve_flat` on the same inputs, unsharded first, then sharded
+    (the kernels are warm from the headline phase, so one call each
+    times both).  Every lane of the sharded call must equal the
     unsharded call's bit for bit, and the counts all-reduced over the group
     must equal the local sums.  Solves/s of each call, each ended by a
     host read.  The group is left at the end, pass or fail.  Then
@@ -3163,11 +3294,13 @@ def phase_dist(device, smi):
     from uneven_planner_tpu_torch.bench import scaling
     from uneven_planner_tpu_torch.parallel import distributed
     from uneven_planner_tpu_torch.solver import alm
+    t_setup = time.perf_counter()
     cfg, grid = headline.scene_setup(device=device)
     shape = alm.ProblemShape(*DIST_SHAPE)
     x0, bnd, _ = headline.make_batch(DIST_BATCH, cfg, shape,
                                      np.random.default_rng(5), sort=False,
                                      device=device)
+    setup_s = time.perf_counter() - t_setup
 
     def unsharded():
         res = alm.solve_flat(x0, bnd, shape, grid, cfg.alm,
@@ -3180,7 +3313,7 @@ def phase_dist(device, smi):
         res, counts = call()
         return res, counts, time.perf_counter() - t0
 
-    ref, local_counts, flat_first_s = timed(unsharded)
+    ref, local_counts, flat_s = timed(unsharded)
     port = distributed.free_port()
     try:
         t0 = time.perf_counter()
@@ -3196,38 +3329,37 @@ def phase_dist(device, smi):
             res, (n_conv, n_inner) = run(scen)
             return res, (int(n_conv), int(n_inner))
         reset_all_launches()
-        res1, counts1, dist_first_s = timed(sharded)
+        res1, counts1, dist_s = timed(sharded)
         launches = all_launches()
-        res2, counts2, dist_s = timed(sharded)
     finally:
         distributed.shutdown()
-    ref2, _, flat_s = timed(unsharded)
     fields = ("x", "converged", "outer_iters", "inner_iters", "res_h",
               "res_g", "lbfgs_status", "evals")
-    differ = {k: sum(lanes_differ(getattr(r, k), getattr(ref, k))
-                     for r in (res1, res2, ref2)) for k in fields}
+    differ = {k: lanes_differ(getattr(res1, k), getattr(ref, k))
+              for k in fields}
+    t_mp = time.perf_counter()
     mp = scaling.run_multiprocess(
         1, 1, DIST_LAUNCH_BATCH, device="cuda", shape=DIST_SHAPE,
         overrides=DIST_OVERRIDES, timeout=300.0)
+    launch_local_s = time.perf_counter() - t_mp
     rate = lambda s: DIST_BATCH / s
     out = dict(card=smi, backend=backend, mesh_shape=list(mesh.shape),
                batch=DIST_BATCH, init_s=init_s,
-               call_order=["unsharded", "sharded", "sharded", "unsharded"],
-               solves_per_s_unsharded_first=rate(flat_first_s),
-               solves_per_s_dist_first=rate(dist_first_s),
-               solves_per_s_dist=rate(dist_s),
+               call_order=["unsharded", "sharded"],
                solves_per_s_unsharded=rate(flat_s),
-               wall_s=[flat_first_s, dist_first_s, dist_s, flat_s],
-               steps=[ref.steps, res1.steps, res2.steps, ref2.steps],
-               n_converged_allreduced=[counts1[0], counts2[0]],
+               solves_per_s_dist=rate(dist_s),
+               wall_s=[flat_s, dist_s],
+               steps=[ref.steps, res1.steps],
+               n_converged_allreduced=counts1[0],
                n_converged_local=local_counts[0],
-               n_inner_allreduced=[counts1[1], counts2[1]],
+               n_inner_allreduced=counts1[1],
                n_inner_local=local_counts[1],
                converged_share=local_counts[0] / DIST_BATCH,
                lanes_differing=differ,
                launches={k: launches[k] for k in (
                    "terrain_tv_packed16", "terrain_tv_pair")},
-               launch_local=mp,
+               launch_local=mp, setup_s=setup_s,
+               launch_local_s=launch_local_s,
                scaling="not measured: one card, one rank")
     log("# dist " + json.dumps(out))
     fails = []
@@ -3235,7 +3367,7 @@ def phase_dist(device, smi):
         fails.append(f"not one NCCL rank: {backend}, {out['mesh_shape']}")
     if any(differ.values()) or len(set(out["steps"])) != 1:
         fails.append(f"lanes differ from the unsharded solve: {differ}")
-    if counts1 != local_counts or counts2 != local_counts:
+    if counts1 != local_counts:
         fails.append("the all-reduced counts are not the local sums")
     if local_counts[0] < 0.95 * DIST_BATCH:
         fails.append("fewer than 95% converged")
@@ -3936,17 +4068,32 @@ def kernel_entries(r):
     # and its two reads there (bucket rows, cloud rows)
     mb = r["build"]
     k3 = packed["k3"]
+    word_keys = ("shape", "equal", "max_abs_err", "ms", "ms_parent",
+                 "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "sector_floor_ms")
+    word = lambda d: d["gather_rows_words"]
     entries[2].update(
         launches_packed_headline=packed["headline"]["launches"][
             "gather_rows"],
-        packed_path={k: k3[k] for k in (
-            "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")},
+        packed_path={k: k3[k] for k in word_keys},
         launches_build=mb["builds"][0]["k3_launches"],
-        build_path=[{k: w[k] for k in (
-            "shape", "equal", "max_abs_err", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "launches_per_build")}
-            for w in mb["k3_reads"]])
+        build_path=[{k: w[k] for k in word_keys + ("launches_per_build",)}
+                    for w in mb["k3_reads"]],
+        # the word path (every table but a shared-memory byte table): its
+        # launches on each main path, and its readings beside K3 before
+        # the redesign and the sector floor
+        launches_word_path=dict(
+            planning=word(plan["launches"]),
+            pipeline=word(pipe["launches"]),
+            mpc=word(mpc["launches"]), nested=word(nested["launches"]),
+            packed_headline=word(packed["headline"]["launches"]),
+            build=mb["builds"][0]["k3_word_launches"],
+            **{f"demo_{k}": word(v) for k, v in r["demo"]["launches"]
+               .items()}),
+        word_path=[{k: w.get(k) for k in word_keys + ("route", "ms_cold",
+                                                      "ms_cold_parent")}
+                   for w in gathers if w["name"] == "gather_rows"
+                   and "route" in w])
     # K4 gather_along at `best_g[cells]` beside the parent's, with the
     # sector floor and the real cells of one search round
     k4 = entries[3]

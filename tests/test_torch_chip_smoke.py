@@ -149,14 +149,64 @@ def test_gather_element_widths(dtype, rows, along):
                 gather.check_element_size(t, sizes, "k")
 
 
-@pytest.mark.parametrize("elem,row_bytes,aligned,want", [
-    (8, 96, True, 16),    # float64 piece rows [N, 12]
-    (8, 48, True, 16),    # [N, 6]
-    (8, 24, True, 8),     # [N, 3]: 8-byte words
-    (8, 96, False, 8),    # a misaligned view
-    (4, 48, True, 16), (4, 4, True, 4), (1, 3, True, 1)])
-def test_gather_rows_word_width(elem, row_bytes, aligned, want):
-    assert gather.row_word_bytes(elem, row_bytes, aligned) == want
+@pytest.mark.parametrize("elem,row_bytes,align,want", [
+    (8, 96, 16, 16),      # float64 piece rows [N, 12]
+    (8, 48, 16, 16),      # [N, 6]
+    (8, 24, 16, 8),       # [N, 3]: 8-byte words
+    (8, 96, 8, 8),        # a view 8 bytes off 16-byte alignment
+    (4, 48, 16, 16), (4, 4, 16, 4), (1, 3, 16, 1),
+    (4, 24, 16, 8),       # float32 tracking rows [N, 6]: 8-byte words
+    (4, 12, 16, 4),       # Dubins' WORD_TYPES rows [6, 3] int32
+    (4, 48, 4, 4),        # a view one float off 16-byte alignment
+    (1, 4, 16, 4), (1, 2, 16, 1), (1, 8, 4, 4),
+    (4, 560, 16, 16),     # the build's bucket rows [N, 140] int32
+    (4, 560, 8, 8)])
+def test_gather_rows_word_width(elem, row_bytes, align, want):
+    """The widest word (16, 8 or 4 bytes) that divides the row and the
+    alignment table and output share, else the element's width."""
+    assert gather.row_word_bytes(elem, row_bytes, align) == want
+
+
+@pytest.mark.parametrize("ptrs,want", [
+    ((0, 0, 0, 0), 16), ((0, 4, 0, 8), 4), ((48, 0, 16, 32), 16),
+    ((24, 0, 0, 0), 8), ((1, 0, 0, 0), 1), ((6, 2, 0, 0), 2)])
+def test_gather_rows_alignment(ptrs, want):
+    assert gather.alignment(*ptrs) == want
+
+
+# (row bytes, element bytes, table and output addresses) -> word bytes
+@pytest.mark.parametrize("args,want", [
+    # e1 C2: rows of one float, aligned or not
+    ((4, 4, 0, 0), 4), ((4, 4, 0, 4), 4),
+    # the bare grid's corner rows [N, 4] f32 and the build's 16-byte cloud
+    # rows: one 16-byte word; the output one float in: four 4-byte words
+    ((16, 4, 0, 0), 16), ((16, 4, 0, 4), 4), ((16, 4, 0, 8), 8),
+    # 8-byte float64 rows of one word
+    ((8, 8, 0, 0), 8), ((8, 8, 8, 0), 8),
+    # a byte table wider than the shared-memory one, and byte rows
+    ((1, 1, 0, 0), 1), ((4, 1, 0, 0), 4), ((4, 1, 0, 2), 1),
+    # rows of several words: e1 C 2 x 16 B, split-bf16 3 x 16 B, tracking
+    # [N, 6] f32 3 x 8 B, Dubins 3 x 4 B, float64 [N, 12] 6 x 16 B, probe B
+    # 32 x 16 B, the build's buckets 35 x 16 B
+    ((32, 4, 0, 0), 16), ((48, 4, 0, 0), 16), ((24, 4, 0, 0), 8),
+    ((12, 4, 0, 0), 4), ((12, 4, 0, 4), 4), ((96, 8, 0, 0), 16),
+    ((512, 4, 0, 0), 16),
+    ((560, 4, 0, 0), 16),
+    # a 48-byte table view one row in is 16-byte aligned; one float in, 4
+    ((48, 4, 48, 0), 16), ((48, 4, 4, 0), 4),
+    # 24-byte rows one row in: 8-byte words either way
+    ((24, 8, 24, 24), 8), ((24, 4, 0, 24), 8),
+    # 560-byte rows into an output 8 bytes off 16-byte alignment
+    ((560, 4, 0, 8), 8)])
+def test_gather_rows_route(args, want):
+    """K3's route for a table that is not a shared-memory byte table: the
+    word path, in the widest word that divides the row and the alignment
+    of table and output."""
+    row, elem, t, o = args
+    word = gather.rows_word(row, elem, t, o)
+    assert word == want
+    assert word == gather.row_word_bytes(elem, row, gather.alignment(t, o))
+    assert row % word == 0 and t % word == 0 and o % word == 0
 
 
 def test_build_phase_cloud_and_oracle():

@@ -379,6 +379,66 @@ def test_gather_rows_kernel_matches_twin_on_card(card, dtype, width,
     assert torch.equal(got.cpu(), gather.gather_rows(table.cpu(), idx.cpu()))
 
 
+# (row bytes, element bytes) of K3's word path: rows of one 4-, 8- and
+# 16-byte word and of several words (12-byte Dubins rows, 24-byte rows as
+# 8-byte words, the 48-byte split-bf16 and tracking rows, probe B's 512
+# bytes, the build's 560)
+WORD_ROWS = [(r, e) for r in (4, 8, 12, 16, 24, 32, 48, 512, 560)
+             for e in (1, 4, 8) if r % e == 0]
+WORD_DTYPES = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes,elem", WORD_ROWS)
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_gather_rows_word_routes_match_twin_on_card(card, row_bytes, elem,
+                                                    idx_dtype):
+    """Every route of K3's word path equals the twin bit for bit: rows of
+    4 to 560 bytes in elements of 1, 4 and 8 bytes, both index types, M
+    from 1 to the split-bf16 headline's 737,280, with the table, the index
+    and the output each whole or a view one element (row) off 16-byte
+    alignment, indices below 0 and at or beyond N, and both offset
+    widths.  Each launch adds one to `gather_rows` and one to
+    `gather_rows_words`, in the word `rows_word` names."""
+    from uneven_planner_tpu_torch.kernels import gather
+    rng = np.random.default_rng(row_bytes * 16 + elem)
+    n, width = 4099, row_bytes // elem
+    dtype = WORD_DTYPES[elem]
+    info = torch.iinfo(dtype)
+    tbuf = torch.tensor(rng.integers(info.min, info.max, (n + 1, width),
+                                     dtype=np.int64, endpoint=True)) \
+        .to(dtype).to(card)
+    for m in (1, 3, 5, 4 * 10007 + 3, 737280):
+        # a launch of 737,280 rows takes several words a thread, fewer rows
+        # one word a thread
+        ibuf = torch.tensor(_indices(rng, n, m + 1) if m + 1 >= 4
+                            else rng.integers(-n, 2 * n, m + 1))
+        ibuf = ibuf.to(idx_dtype).to(card)
+        obuf = torch.empty((m + 1, width), dtype=dtype, device=card)
+        views = [(t, i, o) for t in (0, 1) for i in (0, 1) for o in (0, 1)]
+        if m == 737280:
+            views = [(0, 0, 0), (1, 1, 1), (0, 1, 1), (0, 0, 1)]
+        for t, i, o in views:
+            table, idx, out = tbuf[t:t + n], ibuf[i:i + m], obuf[o:o + m]
+            want = gather.gather_rows_twin(table, idx)
+            word = gather.rows_word(row_bytes, elem, table.data_ptr(),
+                                    out.data_ptr())
+            name = "gather_rows_words"
+            for off32 in ((True, False) if m > 5 else (None,)):
+                out.fill_(0)
+                before = dict(gather.launches)
+                got = gather._launch_rows(table, idx, out, off32=off32)
+                torch.cuda.synchronize()
+                assert got.data_ptr() == out.data_ptr()
+                assert gather.launches["gather_rows"] == \
+                    before["gather_rows"] + 1
+                assert gather.launches[name] == before[name] + 1
+                assert torch.equal(out, want), (m, t, i, o, off32, word)
+        # the public wrapper, on its own output
+        assert torch.equal(gather.gather_rows(tbuf, ibuf),
+                           gather.gather_rows_twin(tbuf, ibuf))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("length", [0, 1, 3, 5, 4 * 10007 + 3])

@@ -26,14 +26,34 @@
 //
 // What bounds them: bytes.  Neither does arithmetic beyond the address; the
 // least traffic is every index in once, every output element out once, and
-// each table row that is touched in once.  Nothing is rounded: results
-// equal the plain PyTorch versions bit for bit.
+// each table row that is touched in once.  A scattered row read from device
+// memory moves whole 32-byte sectors, so where rows scatter over a table
+// beyond the L2 the floor is the sectors the rows touch (a 4-byte row costs
+// a sector; a 48-byte row at a 16-byte offset two).  Nothing is rounded:
+// results equal the plain PyTorch versions bit for bit.
 //
-// K3's design: one thread per output word, consecutive threads on
-// consecutive words of an output row, so index loads and stores coalesce
-// and only the table read is scattered; rows whose byte length is a
-// multiple of 16 move as 16-byte words.
-//
+// K3's design.  A row moves as words of the widest width (16, 8 or 4
+// bytes; else the element's) that divides both the row and the alignment
+// of table and output, so a 24-byte row moves as three 8-byte words.
+// gather_rows_words_kernel is a thread a word of the output, consecutive
+// threads on consecutive words, so index loads and stores coalesce and
+// only the table read scatters; the lanes of one row load the same index,
+// which the warp serves as one request.  On a large launch a thread takes
+// kRowsUnroll words a grid's stride apart and starts their table reads
+// before its first store.  It divides once, in 32 bits where every offset
+// fits (a 64-bit instantiation beside it), and steps its row and word by
+// the stride's quotient and remainder, which the launcher divides: no
+// division in the loop.  A small launch (a word a thread in at most
+// kSpreadBlocks blocks an SM) takes a word a thread: it waits on two
+// dependent reads, and further steps only lengthen its chain.
+// What the card shows (PERF.md, chip_studies/k3_ablation.py): two words a
+// thread run rows from a table the L1 holds, sorted rows and 24-byte rows
+// 1.25-2x faster than one thread a word with a 64-bit division; rows that
+// miss the L1 cost an L2 sector or a DRAM sector each, whose rate sets the
+// time of every variant within 2% (four words a thread, a persistent
+// grid, cache hints, all of L1, a warp sharing a row's index by shuffle;
+// a table over a cluster's distributed shared memory was 2x slower).
+
 // K4's design.  Most of the search's K4 launches read small pools at the
 // launch floor, so the first gain is fewer launches: one for every array
 // read at one index (21 launches a round become 6) and one for the walk
@@ -54,10 +74,10 @@
 //
 // K3 on a byte table that fits in shared memory (one byte per row, at most
 // kSmemTable bytes: the 40,000-byte occupancy table of the search) takes its
-// own kernel, gather_bytes_smem_kernel.  With one thread per output byte the
-// generic kernel spends a 32-byte L2 sector on every 1-byte table read and a
-// 1-byte store per index.  Here a persistent grid (as many blocks as fit on
-// the card at once) copies the table into each block's shared memory once,
+// own kernel, gather_bytes_smem_kernel: read from the L2, every 1-byte
+// table read would cost a 32-byte sector.  Here a persistent grid (as many
+// blocks as fit on the card at once) copies the table into each block's
+// shared memory once,
 // then walks the indices in grid-stride steps: a thread loads 16 bytes of
 // indices (4 int32 or 2 int64), clips them, reads the table from shared
 // memory and writes its 4 (or 2) output bytes as one store, with kUnroll such
@@ -80,21 +100,71 @@ __device__ __forceinline__ long long clip_index(IdxT v, long long n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-// out[i, w] = table[clip(idx[i]), w], rows of `wv` words of type T.
-template <typename T, typename IdxT>
-__global__ void gather_rows_kernel(const T* __restrict__ table,
-                                   const IdxT* __restrict__ idx,
-                                   T* __restrict__ out, long long total,
-                                   long long n, int wv) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const long long i = t / wv;
-  const int w = (int)(t - i * wv);
-  out[t] = table[clip_index(idx[i], n) * wv + w];
-}
-
 constexpr int kSmemTable = 48 * 1024;  // bytes of table the byte path takes
 constexpr int kUnroll = 4;
+// words a thread of K3's word path takes at once on a large launch, and
+// the blocks an SM below which a launch is small: a word a thread
+constexpr int kRowsUnroll = 2;
+constexpr int kSpreadBlocks = 2;
+
+// clip(v, 0, n - 1) as an offset: compared in the wider of the two types,
+// so an int64 index outside 32 bits clips before it is narrowed
+template <typename Off, typename IdxT>
+__device__ __forceinline__ Off clip_offset(IdxT v, Off n) {
+  using W = decltype(IdxT(0) + Off(0));
+  const W w = (W)v;
+  return w < 0 ? Off(0) : (w >= (W)n ? n - 1 : (Off)w);
+}
+
+// A word of the table: through the read-only data path.
+template <typename T>
+__device__ __forceinline__ T load_word(const T* p) {
+  return __ldg(p);
+}
+
+// out[i, :] = table[clip(idx[i]), :] for rows of wv words T, as the total =
+// m * wv words of the output: thread g takes words g + k * stride, k =
+// 0, 1, ..., U of them at a time.  Word t is word w = t % wv of row r =
+// t / wv; a thread divides once and steps (r, w) by the stride's quotient
+// and remainder (q, s), which the launcher divides.  Off: int where every
+// offset, and the last step beyond them, fits (the caller's promise), else
+// long long.
+template <typename T, typename IdxT, typename Off, int U>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_words_kernel(const T* __restrict__ table,
+                             const IdxT* __restrict__ idx,
+                             T* __restrict__ out, Off total, Off n, int wv,
+                             Off q, int s) {
+  const Off stride = (Off)gridDim.x * kThreads;
+  Off t = (Off)blockIdx.x * kThreads + (Off)threadIdx.x;
+  Off r = t / wv;
+  int w = (int)(t - r * wv);
+  // t + u * stride is compared as u * stride < total - t, and t advances
+  // only while a word is left, so no offset passes total by a step
+  for (; t < total; t += U * stride) {
+    Off src[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      src[u] = u * stride < total - t
+                   ? clip_offset<Off>(__ldg(idx + r), n) * wv + w
+                   : Off(0);
+      r += q;
+      w += s;
+      if (w >= wv) {
+        w -= wv;
+        ++r;
+      }
+    }
+    T x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u * stride < total - t) x[u] = load_word(table + src[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u * stride < total - t) out[t + u * stride] = x[u];
+    if (total - t <= U * stride) break;
+  }
+}
 
 // Four (int32) or two (int64) clipped table bytes packed in index order into
 // one little-endian word.
@@ -236,15 +306,6 @@ __device__ __forceinline__ void load_indices(const IdxT* __restrict__ idx,
   }
 }
 
-// clip(v, 0, n - 1) as an offset: compared in the wider of the two types,
-// so an int64 index outside 32 bits clips before it is narrowed
-template <typename Off, typename IdxT>
-__device__ __forceinline__ Off clip_offset(IdxT v, Off n) {
-  using W = decltype(IdxT(0) + Off(0));
-  const W w = (W)v;
-  return w < 0 ? Off(0) : (w >= (W)n ? n - 1 : (Off)w);
-}
-
 // out_a[r, c] = x_a[r * s_row + c * s_col + clip(idx[r, c]) * s_gather] for
 // the n_arrays arrays a: axis 1 of x [R, N] is (s_row, s_col, s_gather) =
 // (N, 0, 1); axis 0 of x [N, C] is (0, 1, C).  idx and every out are
@@ -380,15 +441,59 @@ __global__ void __launch_bounds__(kAlongThreads)
   }
 }
 
-template <typename T, typename IdxT>
+// the most blocks a K3 launch takes; its loop strides over the rest
+constexpr long long kMaxGridX = 1LL << 16;
+// How far K3's word offsets may pass beyond m * wv or n * wv: a row
+// advanced by the last step, at most kRowsUnroll strides of the grid
+constexpr long long kOffSlack = kRowsUnroll * kMaxGridX * kThreads;
+
+// K3's word path.  A small launch, a word a thread in at most
+// kSpreadBlocks blocks an SM, takes U = 1: it waits on its index and table
+// reads, and the shortest chain is the fastest.  A larger one takes U =
+// kRowsUnroll words a thread, a block for every U * kThreads words but at
+// least kSpreadBlocks an SM, at most kMaxGridX, the loop striding over the
+// rest.
+template <typename T, typename IdxT, typename Off>
 int launch_rows(const void* table, const void* idx, void* out, long long m,
                 long long n, int wv, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const long long total = m * wv;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  gather_rows_kernel<T, IdxT><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)table, (const IdxT*)idx, (T*)out, total, n, wv);
+  const long long one = (total + kThreads - 1) / kThreads;
+  const long long spread = (long long)kSpreadBlocks * sms;
+  if (one <= spread) {
+    const long long stride = one * kThreads;
+    gather_rows_words_kernel<T, IdxT, Off, 1>
+        <<<(unsigned)one, kThreads, 0, stream>>>(
+            (const T*)table, (const IdxT*)idx, (T*)out, (Off)total, (Off)n,
+            wv, (Off)(stride / wv), (int)(stride % wv));
+    return (int)cudaGetLastError();
+  }
+  long long blocks = (one + kRowsUnroll - 1) / kRowsUnroll;
+  if (blocks < spread) blocks = spread;
+  if (blocks > kMaxGridX) blocks = kMaxGridX;
+  const long long stride = blocks * kThreads;
+  gather_rows_words_kernel<T, IdxT, Off, kRowsUnroll>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+          (const T*)table, (const IdxT*)idx, (T*)out, (Off)total, (Off)n,
+          wv, (Off)(stride / wv), (int)(stride % wv));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rows_word(const void* table, const void* idx, void* out,
+                     long long m, long long n, int wv, int idx64, int off32,
+                     cudaStream_t s) {
+  if (idx64)
+    return off32 ? launch_rows<T, int64_t, int>(table, idx, out, m, n, wv, s)
+                 : launch_rows<T, int64_t, long long>(table, idx, out, m, n,
+                                                      wv, s);
+  return off32 ? launch_rows<T, int32_t, int>(table, idx, out, m, n, wv, s)
+               : launch_rows<T, int32_t, long long>(table, idx, out, m, n,
+                                                    wv, s);
 }
 
 }  // namespace
@@ -400,30 +505,31 @@ extern "C" {
 // caller checks device, dtype, shape and contiguity.
 
 // K3.  table [n, row_bytes] bytes, idx [m] (int32, or int64 when idx64),
-// out [m, row_bytes].  word_bytes is the widest word (1, 4, 8 or 16) that
-// divides row_bytes and to which the caller found table and out aligned.
+// out [m, row_bytes], m >= 1.  word_bytes (16, 8, 4 or 1) divides row_bytes
+// and the alignment of table and out.  off32: 32-bit offsets (refused
+// where an offset would not fit).
 int gather_rows(const void* table, const void* idx, void* out, long long m,
                 long long n, int row_bytes, int word_bytes, int idx64,
-                void* stream) {
+                int off32, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int wv = row_bytes / word_bytes;
-  if (word_bytes * wv != row_bytes) return (int)cudaErrorInvalidValue;
+  const int wv = word_bytes > 0 ? row_bytes / word_bytes : 0;
+  if (m <= 0 || n <= 0 || wv <= 0 || word_bytes * wv != row_bytes)
+    return (int)cudaErrorInvalidValue;
+  if (off32 && (m > n ? m : n) * wv + kOffSlack > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   switch (word_bytes) {
     case 16:
-      return idx64 ? launch_rows<uint4, int64_t>(table, idx, out, m, n, wv, s)
-                   : launch_rows<uint4, int32_t>(table, idx, out, m, n, wv, s);
+      return launch_rows_word<uint4>(table, idx, out, m, n, wv, idx64, off32,
+                                     s);
     case 8:
-      return idx64 ? launch_rows<uint2, int64_t>(table, idx, out, m, n, wv, s)
-                   : launch_rows<uint2, int32_t>(table, idx, out, m, n, wv, s);
+      return launch_rows_word<uint2>(table, idx, out, m, n, wv, idx64, off32,
+                                     s);
     case 4:
-      return idx64
-                 ? launch_rows<uint32_t, int64_t>(table, idx, out, m, n, wv, s)
-                 : launch_rows<uint32_t, int32_t>(table, idx, out, m, n, wv,
-                                                  s);
+      return launch_rows_word<uint32_t>(table, idx, out, m, n, wv, idx64,
+                                        off32, s);
     case 1:
-      return idx64
-                 ? launch_rows<uint8_t, int64_t>(table, idx, out, m, n, wv, s)
-                 : launch_rows<uint8_t, int32_t>(table, idx, out, m, n, wv, s);
+      return launch_rows_word<uint8_t>(table, idx, out, m, n, wv, idx64,
+                                       off32, s);
   }
   return (int)cudaErrorInvalidValue;
 }

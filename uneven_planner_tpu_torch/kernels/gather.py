@@ -16,7 +16,8 @@ twin only for tensors that lie on the CPU; for CUDA tensors it launches the
 kernel on PyTorch's current stream or raises, and never falls back.  The
 kernels copy bits, so they care only for an element's width: K3 takes 1-,
 4- and 8-byte tables (a byte table of at most SMEM_TABLE_BYTES rows is read
-from shared memory by a kernel of its own), K4 4- and 8-byte elements, so
+from shared memory by a kernel of its own; other rows move as the widest
+words that fit, `row_word_bytes`), K4 4- and 8-byte elements, so
 float64 and int64 run on the card as float32 and int32 do.  Neither has a
 gradient: the search and the reference sampling that use them are not
 differentiated.
@@ -28,13 +29,14 @@ per launch.
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from uneven_planner_tpu_torch.kernels.build import CudaLibrary
 
-launches = {"gather_rows": 0, "gather_along": 0,
-            "gather_along_many": 0, "walk_parents": 0}
+# "gather_rows" counts every K3 launch, and the two below it those of each
+# of its kernels: the shared-memory byte table and the word path
+launches = {"gather_rows": 0, "gather_rows_shared": 0, "gather_rows_words": 0,
+            "gather_along": 0, "gather_along_many": 0, "walk_parents": 0}
 
 _IDX_TYPES = (torch.int32, torch.int64)
 # the largest byte table K3 copies into shared memory (kSmemTable of
@@ -42,6 +44,11 @@ _IDX_TYPES = (torch.int32, torch.int64)
 SMEM_TABLE_BYTES = 48 * 1024
 # element widths, in bytes, each kernel is compiled for
 ROWS_ELEMENT_BYTES = (1, 4, 8)
+# the words K3 moves a row in, widest first (else the element's width), and
+# how far its word offsets may pass beyond M * W or N * W (kOffSlack of
+# csrc/gather.cu: kRowsUnroll * kMaxGridX * kThreads)
+ROWS_WORDS = (16, 8, 4)
+ROWS_OFF_SLACK = 2 * 2 ** 16 * 256
 ALONG_ELEMENT_BYTES = (4, 8)
 # arrays one K4 launch reads at one index (kMaxArrays), and the indices a
 # thread takes (kAlongVec)
@@ -56,7 +63,7 @@ def reset_launches():
 
 def _declare(lib):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gather_rows.argtypes = [p, p, p, ll, ll, i, i, i, p]
+    lib.gather_rows.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
     lib.gather_rows.restype = i
     lib.gather_rows_bytes_smem.argtypes = [p, p, p, ll, i, ll, i, p]
     lib.gather_rows_bytes_smem.restype = i
@@ -97,11 +104,30 @@ def check_element_size(t: torch.Tensor, sizes, name):
 # K3 gather_rows
 # ---------------------------------------------------------------------------
 
-def row_word_bytes(elem: int, row_bytes: int, aligned16: bool) -> int:
-    """The word K3 moves a table row in: 16 bytes where the row's length
-    is a multiple of 16 and table and output are 16-byte aligned, else
-    the element's own width."""
-    return 16 if row_bytes % 16 == 0 and aligned16 else elem
+def row_word_bytes(elem: int, row_bytes: int, align: int) -> int:
+    """The word K3 moves a table row in: the widest of ROWS_WORDS that
+    divides both the row's length and `align` (the alignment, in bytes,
+    that table and output share), else the element's own width."""
+    for word in ROWS_WORDS:
+        if row_bytes % word == 0 and align % word == 0:
+            return word
+    return elem
+
+
+def alignment(*ptrs: int) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    align = 16
+    while align > 1 and any(p % align for p in ptrs):
+        align //= 2
+    return align
+
+
+def rows_word(row_bytes: int, elem: int, table_ptr: int, out_ptr: int) -> int:
+    """K3's route for rows that are not a shared-memory byte table: the
+    word path, in the word `row_word_bytes` gives rows of `row_bytes`
+    (elements of `elem` bytes) from the table at `table_ptr` into the
+    output at `out_ptr`."""
+    return row_word_bytes(elem, row_bytes, alignment(table_ptr, out_ptr))
 
 
 def gather_rows_twin(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -144,9 +170,17 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     check_element_size(table, ROWS_ELEMENT_BYTES, "gather_rows")
     if not table.is_contiguous() or not idx.is_contiguous():
         raise ValueError("gather_rows: table and idx must be contiguous")
+    out = torch.empty((idx.shape[0],) + tuple(table.shape[1:]),
+                      dtype=table.dtype, device=table.device)
+    return _launch_rows(table, idx, out)
+
+
+def _launch_rows(table, idx, out, *, off32=None):
+    """K3 on CUDA tensors the wrapper has checked, into `out` (contiguous,
+    [M] + table.shape[1:], table's dtype; the card tests pass views off
+    alignment).  The offset width comes from the sizes unless named (the
+    card tests name each instantiation)."""
     M, N = idx.shape[0], table.shape[0]
-    out = torch.empty((M,) + tuple(table.shape[1:]), dtype=table.dtype,
-                      device=table.device)
     if M == 0:
         return out
     lib = LIBRARY.load()
@@ -156,16 +190,21 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         err = lib.gather_rows_bytes_smem(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), M, N,
             _vector_head(idx, out), idx64, stream)
+        route = "gather_rows_shared"
     else:
         elem = table.element_size()
         row_bytes = elem * (table.shape[1] if table.dim() == 2 else 1)
-        word = row_word_bytes(elem, row_bytes, table.data_ptr() % 16 == 0
-                              and out.data_ptr() % 16 == 0)
+        word = rows_word(row_bytes, elem, table.data_ptr(), out.data_ptr())
+        if off32 is None:   # every offset, with the loop's last step
+            off32 = max(M, N) * (row_bytes // word) + ROWS_OFF_SLACK \
+                < 2 ** 31
         err = lib.gather_rows(table.data_ptr(), idx.data_ptr(),
                               out.data_ptr(), M, N, row_bytes, word, idx64,
-                              stream)
+                              int(off32), stream)
+        route = "gather_rows_words"
     _raise_on(lib, err, "gather_rows")
     launches["gather_rows"] += 1
+    launches[route] += 1
     return out
 
 
