@@ -30,6 +30,7 @@ from uneven_planner_tpu_torch.bench import scene_eval
 from uneven_planner_tpu_torch.bench import tracking_benchmark as tb
 from uneven_planner_tpu_torch.config import MapConfig, MPCConfig, scene_config
 from uneven_planner_tpu_torch.frontend import kino_init
+from uneven_planner_tpu_torch.solver import alm
 from uneven_planner_tpu_torch.terrain.synthetic import make_synthetic_grid
 from uneven_planner_tpu_torch.utils import profiling, vis
 
@@ -166,6 +167,38 @@ JAX_STUDY_KEYS = {"batch", "conv_f32", "conv_f64", "conv_agree",
                   "x_gap_p50"}
 
 
+# The float32 parity of the two studies is a property of many draws: one
+# float32 solve of 30 L-BFGS iterations lands anywhere from 1e-4 (10th
+# percentile) to 2.3e-3 (90th) from the float64 one as x0 moves by an ulp
+# (the port's lanes below, on an AMD EPYC host; JAX's medians agree), so
+# one lane says little.  The tests run each package on copies of the two
+# scenarios in one batch, each copy's inputs moved by up to 2 float32
+# ulps an element (the first copy exact), and compare the study's medians
+# over the 2 x STUDY_COPIES lanes.  A median of n lanes sits within
+# +-2 sqrt(0.25 / n) in quantile of the lanes' own median (two standard
+# errors); at n = 128 that is the 41st to 59th percentile, and the
+# port/JAX ratio of the two medians moved over 0.93-1.16 in four draws of
+# the copies (cpu_studies/parity_margins.py copies): STUDY_RATIO = 2
+# allows that spread and catches a float32 solve stopped at 3x the ALM's
+# constraint tolerance (x gap 20.7x JAX's, jerk gap 4.4x).  The old
+# limits, 1e-3 on the x gap and 1e-2 on the jerk gap, hold the two
+# medians of both packages.
+STUDY_COPIES = 64
+STUDY_RATIO = 2.0
+TOL_STUDY_X_GAP = 1e-3
+TOL_STUDY_JERK_GAP = 1e-2
+
+
+def _ulp_copies(a, copies, seed=0):
+    """`copies` copies of a [n, ...] float64 array stacked along axis 0,
+    every element of every copy but the first times (1 + k 2^-24), k drawn
+    from -4..4: up to 2 float32 ulps."""
+    u = np.random.default_rng(seed).integers(-4, 5, (copies,) + a.shape)
+    u[0] = 0
+    return (a[None] * (1.0 + u * 2.0 ** -24)).reshape(
+        (copies * a.shape[0],) + a.shape[1:])
+
+
 def test_precision_study_matches_jax(monkeypatch):
     """The port's study against the JAX study on the same coarse hill, the
     same seed, B = 2 and the same small shape, both on the CPU.  The
@@ -173,8 +206,11 @@ def test_precision_study_matches_jax(monkeypatch):
     field); the float64 CPU block agrees to 1e-6 relative (the two
     packages' float64 solves agree to ~1e-8); the float32 block, which
     each package computes in its own operation order, has the same
-    converged shares, residuals under the ALM tolerance on both sides and
-    float32-against-float64 gaps of the same small scale.  The port's
+    converged shares and residuals under the ALM tolerance on both sides.
+    Its float32-against-float64 gaps are compared over STUDY_COPIES copies
+    of the two scenarios (`_ulp_copies`; both packages solve the same
+    x0s): the medians (x_gap_p50, jerk_rel_gap_p50) under the old limits
+    in both packages and within STUDY_RATIO of each other.  The port's
     float64-against-float64 block agrees to the bit on one device."""
     import uneven_planner_tpu.config as jconfig
     from uneven_planner_tpu import manager as jmanager
@@ -186,6 +222,7 @@ def test_precision_study_matches_jax(monkeypatch):
     monkeypatch.setattr(jconfig, "scene_config", lambda name: dataclasses
                         .replace(jscene_cfg(name), map=JMapConfig(**coarse)))
     jdraws, tdraws = [], []
+    init_guess, make_batch = jmanager.init_guess_fixed, headline.make_batch
 
     def recorded(fn, into):
         def call(*a, **k):
@@ -193,14 +230,14 @@ def test_precision_study_matches_jax(monkeypatch):
             return into[-1]
         return call
     monkeypatch.setattr(jmanager, "init_guess_fixed",
-                        recorded(jmanager.init_guess_fixed, jdraws))
+                        recorded(init_guess, jdraws))
     monkeypatch.setattr(headline, "make_batch",
-                        recorded(headline.make_batch, tdraws))
-    shape = dict(B=2, piece_xy=4, piece_yaw=8, int_K=8)
-    want = jps.run_study(**shape)
-    out = precision_study.run_study(
-        **shape, device="cpu", map_cfg=MapConfig(**coarse),
-        overrides={"mem_size": 16, "max_iterations": 30})
+                        recorded(make_batch, tdraws))
+    shape = dict(piece_xy=4, piece_yaw=8, int_K=8)
+    study = lambda B: (jps.run_study(B=B, **shape), precision_study.run_study(
+        B=B, **shape, device="cpu", map_cfg=MapConfig(**coarse),
+        overrides={"mem_size": 16, "max_iterations": 30}))
+    want, out = study(2)
     json.dumps(out)
     assert JAX_STUDY_KEYS <= set(out) and set(want) == JAX_STUDY_KEYS
     x0s, bounds, _ = tdraws[0]
@@ -215,14 +252,29 @@ def test_precision_study_matches_jax(monkeypatch):
         assert out[k] == want[k] == 1.0, (k, out, want)
     for k in ("res_h_f64_max", "res_g_f64_max"):
         np.testing.assert_allclose(out[k], want[k], rtol=1e-6)
+    f64 = out["f64_card"]
+    assert f64["conv_agree"] == 1.0 and f64["x_gap_max"] == 0.0
+
+    # the same study over copies of the two scenarios, the same x0s in both
+    xs = _ulp_copies(x0s.numpy(), STUDY_COPIES)
+    draws = iter([(x, jdraws[i % 2][1]) for i, x in enumerate(xs)])
+    monkeypatch.setattr(jmanager, "init_guess_fixed",
+                        lambda *a, **k: next(draws))
+    idx = np.resize([0, 1], len(xs))
+    monkeypatch.setattr(headline, "make_batch", lambda *a, **k: (
+        torch.as_tensor(xs), alm.tree_map(lambda t: t[idx], bounds), None))
+    want, out = study(len(xs))
+    for k in ("conv_f32", "conv_f64", "conv_agree"):
+        assert out[k] == want[k] == 1.0, (k, out, want)
+    # a converged lane ends with its residuals under the ALM tolerance
     tol = scene_config("hill").alm.epsilon_con
     for k in ("res_h_f32_max", "res_g_f32_max"):
         assert max(out[k], want[k]) < tol, (k, out, want)
-    # float32 against float64: the same small scale in both packages
-    for k, lim in (("x_gap_p50", 1e-3), ("jerk_rel_gap_max", 1e-2)):
+    for k, lim in (("x_gap_p50", TOL_STUDY_X_GAP),
+                   ("jerk_rel_gap_p50", TOL_STUDY_JERK_GAP)):
         assert 0.0 < out[k] < lim and 0.0 < want[k] < lim, (k, out, want)
-    f64 = out["f64_card"]
-    assert f64["conv_agree"] == 1.0 and f64["x_gap_max"] == 0.0
+        assert 1.0 / STUDY_RATIO <= out[k] / want[k] <= STUDY_RATIO, (
+            k, out[k], want[k])
 
 
 def test_scaling_sweeps_run_on_cpu_shards():
@@ -288,25 +340,54 @@ def _coarse_hill_config(scene_config_fn):
 
 
 # run_scene's report against the JAX harness's on the same hill and seed
-# (both float32 on the CPU, each in its own operation order): the rates
-# and counts equal; the tracking errors within 2% relative; each of the six
-# post-solve metrics within 0.2% of its bound
+# (both float32 on the CPU, each in its own operation order), over
+# SCENE_COPIES copies of the two scenarios in one batch (`_ulp_copies`,
+# as the precision study): the rates and counts equal; the tracking errors
+# within 2% relative; each of the six post-solve metrics, per scenario, as
+# the mean over its copies of the per-lane metric, within 0.2% of its
+# bound or SCENE_SIGMAS standard errors of JAX's lanes, whichever is more.
+# A lane's final tracking error moves by up to 5.8% (one standard
+# deviation, the first scenario) when its start and goal move by an ulp,
+# in JAX as in the port; the report's mean over 32 lanes by 0.5%, so two
+# packages that draw from one spread differ by 0.7% (one standard
+# deviation), and 2% is 2.9 of them.  The report's metrics are the
+# largest over the lanes, an extreme of 16 draws a scenario: JAX's own
+# max_vx moved by 5.3e-3 of its bound between two draws of the copies.
+# The mean of n lanes moves by sigma / sqrt(n), and two packages' means
+# by sigma sqrt(2 / n), sigma a lane's standard deviation in JAX; they
+# differ by more than SCENE_SIGMAS = 4 of those with probability 6e-5.
+# Where JAX's lanes spread less than the old limit (most metric-scenario
+# pairs on this hill; cpu_studies/parity_margins.py copies) the old limit
+# of 0.2% of the bound holds.
+SCENE_COPIES = 16
+SCENE_SIGMAS = 4.0
 TOL_SCENE_TRACK_REL = 2e-2
 TOL_SCENE_METRIC_OF_BOUND = 2e-3
 SCENE_METRIC_BOUNDS = {"max_vx": "bound_vx", "max_ax": "bound_ax",
                        "max_ay": "bound_ay", "max_kap": "bound_kap",
                        "min_cxi": "bound_cxi", "max_sig": "bound_sig"}
+# the report's metric -> the per-lane key of max_metrics (both packages)
+SCENE_LANE_KEYS = {"max_vx": "max_vx", "max_ax": "max_ax",
+                   "max_ay": "max_ay", "max_kap": "max_cur",
+                   "min_cxi": "min_cxi", "max_sig": "max_sig"}
 
 
 def test_scene_eval_matches_jax_on_a_coarse_hill(monkeypatch):
     """tests/test_scene_eval.py:12 on both packages: `run_scene` on the
-    same coarse hill at batch 2, seed 0, on the CPU; the report has the
-    JAX harness's keys and agrees with its report (TOL_SCENE_*).  The C++
+    same coarse hill, seed 0's two scenarios in SCENE_COPIES copies (the
+    first exact), on the CPU; the report has the JAX harness's keys and
+    agrees with its report (TOL_SCENE_*, SCENE_SIGMAS), the six metrics
+    through the per-lane values behind them, each package's own
+    `max_metrics` over its pipeline's trajectories.  The C++
     A* oracle's three keys (each package's own binding of the same C++
     over its own grid) equal the JAX harness's: the feasible share is set
     (0 on this coarse grid, whose cells are wider than the A* lattice's
     arc step, so the two shares on the feasible lanes are None in both)."""
     from uneven_planner_tpu import api as japi
+    from uneven_planner_tpu.minco import traj as jtraj
+    from uneven_planner_tpu.parallel import pipeline as jpipeline
+    from uneven_planner_tpu_torch.minco import traj as ttraj
+    from uneven_planner_tpu_torch.parallel import pipeline as tpipeline
 
     def jax_hill(name, cache_dir="data", dtype=np.float32):
         scfg = _coarse_hill_config(jscene_config)
@@ -317,9 +398,37 @@ def test_scene_eval_matches_jax_on_a_coarse_hill(monkeypatch):
         return scfg, make_synthetic_grid(scfg.map, dtype=dtype,
                                          device=device)
 
+    def copies(draw):
+        def call(occ_xy, map_cfg, n, rng, **k):
+            return tuple(_ulp_copies(p, SCENE_COPIES).astype(p.dtype)
+                         for p in draw(occ_xy, map_cfg, 2, rng, **k))
+        return call
+    lanes = {}
+
+    def per_lane(package, plan, metrics):
+        """Record the first pass's per-lane metrics and converged flags."""
+        def call(grid, *a, **k):
+            res = plan(grid, *a, **k)
+            if package not in lanes:
+                lanes[package] = ({k: np.asarray(v) for k, v in
+                                   metrics(res.traj, grid).items()},
+                                  np.asarray(res.alm_converged))
+            return res
+        return call
     monkeypatch.setattr(japi, "load_or_build_scene", jax_hill)
     monkeypatch.setattr(api, "load_or_build_scene", coarse_hill)
-    kw = dict(B=2, n_track_steps=40,
+    for mod in (jscene, scene_eval):
+        monkeypatch.setattr(mod, "sample_free_scenarios",
+                            copies(mod.sample_free_scenarios))
+    monkeypatch.setattr(jpipeline, "plan_track_batch_chunked", per_lane(
+        "jax", jpipeline.plan_track_batch_chunked,
+        lambda tr, g: jax.jit(lambda g_, tr_: jax.vmap(
+            lambda t: jtraj.max_metrics(t, g_, num_samples=1024))(tr_))(
+            g, tr)))
+    monkeypatch.setattr(tpipeline, "plan_track_batch", per_lane(
+        "port", tpipeline.plan_track_batch,
+        lambda tr, g: ttraj.max_metrics(tr, g, num_samples=1024)))
+    kw = dict(B=2 * SCENE_COPIES, n_track_steps=40,
               lbfgs_overrides={"mem_size": 8, "max_iterations": 250})
     want = jscene.run_scene("hill", **kw)
     rep = scene_eval.run_scene("hill", device="cpu", **kw)
@@ -343,8 +452,23 @@ def test_scene_eval_matches_jax_on_a_coarse_hill(monkeypatch):
     for k, bound in SCENE_METRIC_BOUNDS.items():
         assert m[bound] == jm[bound]
         assert m[k] is not None and np.isfinite(m[k]), (k, m)
-        assert abs(m[k] - jm[k]) <= TOL_SCENE_METRIC_OF_BOUND * abs(
-            jm[bound]), (k, m[k], jm[k])
+    # the recorded lanes are the report's: its metrics are their extremes
+    # over the converged lanes (no lane was retried)
+    assert rep["retried_lanes"] == 0
+    for report, (mm, conv) in ((want, lanes["jax"]), (rep, lanes["port"])):
+        for k, key in SCENE_LANE_KEYS.items():
+            ext = np.min if k.startswith("min") else np.max
+            assert report["metrics"][k] == ext(mm[key][conv]), k
+    # per scenario, the mean over its copies
+    (jmm, _), (tmm, _) = lanes["jax"], lanes["port"]
+    for k, key in SCENE_LANE_KEYS.items():
+        for s in (0, 1):
+            a, b = jmm[key][s::2], tmm[key][s::2]
+            tol = max(TOL_SCENE_METRIC_OF_BOUND * abs(
+                jm[SCENE_METRIC_BOUNDS[k]]), SCENE_SIGMAS * a.std()
+                * np.sqrt(2.0 / len(a)))
+            assert abs(b.mean() - a.mean()) <= tol, (k, s, b.mean(),
+                                                      a.mean(), tol)
 
 
 def jscene_report_keys():

@@ -38,10 +38,22 @@ from uneven_planner_tpu_torch.terrain.synthetic import hill_height
 CPU = torch.device("cpu")
 CFG = MapConfig(xy_resolution=0.4, yaw_resolution=0.8)
 JCFG = JMapConfig(xy_resolution=0.4, yaw_resolution=0.8)
-TOL_CELL = 2e-3        # every cell (tests/test_build.py, modes agree)
-TOL_MEDIAN = 1e-6      # the median cell: the two differ by rounding only
-TOL_EIGH_JAX = 1e-12   # float64, against the JAX package
-TOL_EIGH_NUMPY = 1e-8  # float64, against numpy (tests/test_build.py)
+# Every cell: the bound the JAX package holds its own two build modes of
+# one cloud to (tests/test_build.py:158, :164).  In float32 a cell's normal
+# and sigma come from the smallest eigenvalue of a 3x3 covariance, which a
+# rounding of the covariance moves by up to ~sqrt(eps_f32) lambda_max =
+# 3.5e-4 lambda_max on near-planar ellipsoids, ~1e-3 in sigma = 3
+# lambda_min / trace (see SIGMA_ROUNDING): 2e-3 is twice that.
+TOL_CELL = 2e-3
+# The median cell, a well-conditioned fit: 8 float32 ulps (1.2e-7 each)
+# of a value of order 1; the two builds differ by rounding only.
+TOL_MEDIAN = 1e-6
+# float64, the same closed form operation for operation
+# (build.py:_eigh3_smallest): a few thousand ulps of eigenvalues of order 1
+TOL_EIGH_JAX = 1e-12
+# float64 against numpy's eigh: the JAX package's own bound
+# (tests/test_build.py:26)
+TOL_EIGH_NUMPY = 1e-8
 # sigma = 3 lambda_min / trace is ~0 on a noise-free surface, and exactly 0
 # where an ellipsoid holds two points, where the float32 closed form of
 # both packages puts lambda_min up to ~sqrt(eps_f32) lambda_max to either

@@ -34,20 +34,29 @@ from uneven_planner_tpu_torch.examples import (build_maps, debug_stepper,
 from uneven_planner_tpu_torch.terrain import io, mesh
 from uneven_planner_tpu_torch.utils import native
 
-from torch_parity import TEST_CFG, lane_stability
+from torch_parity import (TEST_CFG, assert_in_envelope, jax_envelope,
+                          lane_stability)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the ALM band (tests/test_torch_nested.py, tests/test_alm.py:201): x of a
-# lane the port and JAX may take apart by an ulp-level decision
+# the ALM band: the JAX package holds its own flat and nested solves of one
+# problem to it (tests/test_alm.py:309, :408): x of a lane the port and JAX
+# may take apart by an ulp-level decision
 TOL_BAND = 2e-2
-# debug_iterates rows (tests/test_torch_nested.py::
-# test_debug_iterates_rows_match_jax): iterates 1e-8, values 1e-10
+# debug_stepper's rows: the floors of its envelope, where JAX's 1-ulp
+# spread is smaller (the first evaluations, before rounding compounds).
+# Iterates: lane_stability's floor (tests/torch_parity.py).  Values: at a
+# common iterate the two packages differ only in the order of summation, a
+# value being a sum of ~2,000 float64 terms (170 samples x the penalty
+# terms, and the jerk): at most ~2,000 x 1.1e-16 = 2.2e-13 of its size;
+# 1e-10 of the lane's largest value leaves 450x for the iterates' drift
 TOL_ROWS_X = 1e-8
 TOL_ROWS_F = 1e-10
-# tracking error of the same trajectory, each package in its own
-# operation order (tests/test_torch_bench.py TOL_SCENE_TRACK_REL)
-TOL_TRACK_REL = 2e-2
-# built maps (tests/test_torch_build.py): every cell, the median cell
+# the mean tracking error of two plans held to each other within TOL_BAND
+# (two solves of one problem, the port's and JAX's): the same band,
+# relative to the error
+TOL_TRACK_REL = TOL_BAND
+# built maps: every cell, the median cell (their reckoning at
+# tests/test_torch_build.py TOL_CELL, TOL_MEDIAN)
 TOL_CELL, TOL_MEDIAN = 2e-3, 1e-6
 BUILD_CFG = MapConfig(xy_resolution=0.4, yaw_resolution=0.8)
 
@@ -89,10 +98,14 @@ def test_plan_demo_matches_jax(demo, jax_hill):
     within 1e-8 then, within the ALM band otherwise; the report's six
     maxima within the ALM band of JAX's and its equal error (a sum over
     2048 samples that each outer round shrinks) below tests/test_alm.py's
-    0.5 in both.  (On this grid the lane is not
-    stable: 6 outer rounds at x0, 6 with 67 inner iterations at
-    x0 (1 + 1e-14), and the port's 8 at x0 become JAX's 6 at
-    x0 (1 - 1e-14).)"""
+    0.5 in both; the mean tracking error within TOL_TRACK_REL.  (On this
+    grid the lane is not stable.  On an AMD EPYC host JAX takes 6 outer
+    rounds with 72 inner iterations at x0, at x0 (1 +- 1e-15) and at 64
+    random 1-ulp changes of x0, 67 at x0 (1 + 1e-14), and 8 rounds only
+    at x0 (1 + 1e-10); the port's solve of JAX's x0 takes 8 rounds (78
+    iterations), and at x0 (1 +- 1e-14) JAX's 6 (67, 72): the port's
+    order of summation moves this lane farther than an ulp of x0 does,
+    which is why it is held to the ALM band and no envelope.)"""
     r, _, lines = demo
     scfg = jscene_config("hill")
     start = jnp.asarray([-3.0, -3.0, 0.0])
@@ -162,9 +175,10 @@ def test_plan_demo_exports_finite_se3_poses(demo):
     assert np.abs(rows[:, 2]).max() < 1.0
 
 
-def _jax_stepper_rows(jg):
+def _jax_stepper_rows(jg, scale=1.0):
     """The iterates and CSV rows of examples/debug_stepper.py, computed as
-    it computes them, on the coarse float64 hill with its pair table."""
+    it computes them, on the coarse float64 hill with its pair table, from
+    the stepper's x0 times `scale`."""
     cfg = jscene_config("hill")
     shape = jalm.ProblemShape(piece_xy=10, piece_yaw=20, int_K=16)
     x0, bound = jmanager.init_guess_fixed(debug_stepper.fixed_path(),
@@ -173,7 +187,7 @@ def _jax_stepper_rows(jg):
     rec = jax.jit(lambda x, b, g: jalm.debug_iterates(
         x, b, shape, g, cfg.alm, max_evals=debug_stepper.MAX_EVALS,
         lbfgs_overrides=debug_stepper.LBFGS_OVERRIDES))(
-        jnp.asarray(x0), bound, jg)
+        jnp.asarray(x0 * scale), bound, jg)
     rec = jax.tree.map(np.asarray, rec)
     n_valid = int(rec["valid"].sum())
     u = np.linspace(0.0, 1.0, debug_stepper.TIMES)
@@ -191,39 +205,54 @@ def _jax_stepper_rows(jg):
     return rec, rows
 
 
+def _stepper_record(rec, rows):
+    """(counts [1, C], values) of a stepper run for the envelope: each
+    evaluation's round, iteration and validity and each CSV row's
+    evaluation; the iterates, the values and the CSV's columns."""
+    rows = np.asarray(rows, np.float64)
+    counts = np.concatenate([rec["outer"], rec["inner"], rec["valid"],
+                             rows[:, 0]]).astype(np.int64)
+    values = {"x": rec["x"], "f": rec["f"], "csv_f": rows[:, 1],
+              "csv_pose": rows[:, 2:]}
+    return counts[None], {k: np.asarray(v, np.float64)[None]
+                          for k, v in values.items()}
+
+
 def test_debug_stepper_csv_matches_jax(tmp_path):
     """debug_stepper's recorded evaluations and its CSV against
-    examples/debug_stepper.py's on the same fixed path: round, iteration
-    and validity rows equal, iterates within 1e-8 and values within 1e-10
-    of the lane's largest value (over 192 evaluations of this shape one
-    value lies 1.05e-10 from JAX's, 2.0e-10 in 2.3), and the CSV (eval,
-    fval, t, x, y, yaw) row for row."""
+    examples/debug_stepper.py's on the same fixed path, held to JAX's
+    envelope on this host (torch_parity.jax_envelope: the JAX stepper at
+    x0 and at x0 (1 +- 1e-15)): round, iteration and validity rows and the
+    CSV's evaluation column equal those of the JAX runs; iterates and the
+    pose columns within their range widened by max(1e-8, 10 x spread),
+    values and the fval column by max(1e-10 of the lane's largest value,
+    10 x spread).  JAX's own values at x0 and x0 (1 +- 1e-15) spread by
+    4.3e-10 of the largest and move with OMP_NUM_THREADS (on an AMD EPYC
+    host), so no fixed bound at 1e-10 holds them."""
     out = str(tmp_path / "debug.csv")
     got = debug_stepper.run(TEST_CFG, out=out, device="cpu",
                             dtype=np.float64, log=lambda s: None)
     jg = jgrid.with_pair_table(jhill(
         JMapConfig(xy_resolution=0.2, yaw_resolution=0.45),
         dtype=np.float64))
-    rec, rows = _jax_stepper_rows(jg)
-    for k in ("outer", "inner", "valid"):
-        np.testing.assert_array_equal(got.rec[k], rec[k], err_msg=k)
-    np.testing.assert_allclose(got.rec["x"], rec["x"], rtol=0,
-                               atol=TOL_ROWS_X)
-    f_scale = np.abs(rec["f"]).max()
-    np.testing.assert_allclose(got.rec["f"], rec["f"], rtol=0,
-                               atol=TOL_ROWS_F * f_scale)
+    runs = []
+
+    def jax_stepper(s):
+        runs.append(_jax_stepper_rows(jg, float(s[0])))
+        return runs[-1]
+    env = jax_envelope(jax_stepper, np.ones(1),
+                       read=lambda r: _stepper_record(*r), wrap=np.asarray)
+    rec, rows = runs[0]
     assert rec["valid"].sum() >= 1
     with open(out) as f:
         table = list(csv.reader(f))
     assert table[0] == debug_stepper.COLUMNS.split(",")
     body = np.asarray(table[1:], np.float64)
-    want = np.asarray(rows, np.float64)
-    assert body.shape == want.shape == (len(got.rows), 6)
-    np.testing.assert_array_equal(body[:, 0], want[:, 0])
-    np.testing.assert_allclose(body[:, 1], want[:, 1], rtol=0,
-                               atol=TOL_ROWS_F * f_scale)
-    np.testing.assert_allclose(body[:, 2:], want[:, 2:], rtol=0,
-                               atol=TOL_ROWS_X)
+    assert body.shape == np.shape(rows) == (len(got.rows), 6)
+    f_tol = TOL_ROWS_F * np.abs(rec["f"]).max()
+    assert_in_envelope(env, *_stepper_record(got.rec, body),
+                       floor={"x": TOL_ROWS_X, "f": f_tol, "csv_f": f_tol,
+                              "csv_pose": TOL_ROWS_X})
 
 
 def test_build_maps_on_a_sampled_cloud(tmp_path):

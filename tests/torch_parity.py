@@ -124,6 +124,151 @@ def assert_lanes_match(ref, res, stable, spread, min_stable):
 
 
 # ---------------------------------------------------------------------------
+# JAX's envelope on the host that runs the test
+# ---------------------------------------------------------------------------
+
+# the 1-ulp perturbations of a float64 x0 (lane_stability's spread runs)
+ULP_EPS = (1e-15, -1e-15)
+# jax_envelope's fixed sample of each lane whose counts move: a count tuple
+# that carries a share p of JAX's runs is missing from RUNS_PER_LANE of
+# them with probability (1 - p)^128, 1.4e-3 at p = 5%
+RUNS_PER_LANE = 128
+
+
+def read_alm(r):
+    """(counts [B, C] int, values) of an ALMResult of either package: the
+    COUNTS the solver keeps and the converged flag per lane, and x."""
+    counts = [np.asarray(getattr(r, n)) for n in COUNTS + ("converged",)
+              if getattr(r, n) is not None]
+    return (np.stack(counts, 1).astype(np.int64),
+            {"x": np.asarray(r.x, np.float64)})
+
+
+class Envelope:
+    """What the JAX function gives on this host at x0 and at 1-ulp
+    perturbations of x0: per lane, one row per run of its counts (a tuple
+    of ints) and its values (name -> float array); row 0 is the run at x0.
+
+    The port sums in another order than XLA, and XLA's own order moves with
+    the host's instruction set and threading, so the port is held to this
+    set and not to one JAX run: its counts must be those of one run, and
+    each value must lie in the range of the runs with those counts,
+    widened by max(floor, 10 x spread), lane_stability's rule.  `spread`
+    is how far a value moves among runs whose counts agree (per lane and
+    quantity, the widest such group).  `floor`, the least widening, is
+    lane_stability's 1e-8 unless a test passes its own absolute tolerance
+    for a quantity."""
+
+    def __init__(self, n_lanes):
+        self.rows = [[] for _ in range(n_lanes)]
+
+    def add(self, counts, values, lanes=None):
+        """One run: row i of counts and values is lane lanes[i] (default
+        lane i)."""
+        lanes = range(len(self.rows)) if lanes is None else lanes
+        for i, b in enumerate(lanes):
+            self.rows[b].append((tuple(int(c) for c in counts[i]),
+                                 {k: np.asarray(v[i], np.float64)
+                                  for k, v in values.items()}))
+
+    def counts(self, lane):
+        return {c for c, _ in self.rows[lane]}
+
+    def at_x0(self, name):
+        """The run at x0: `name` over the lanes."""
+        return np.stack([lane[0][1][name] for lane in self.rows])
+
+    def spread(self, lane, name):
+        groups = {}
+        for c, v in self.rows[lane]:
+            groups.setdefault(c, []).append(v[name])
+        return max(float(np.ptp(np.stack(g), 0).max())
+                   for g in groups.values())
+
+    def margin(self, lane, counts, name, got, floor=None):
+        """(how far `got` lies outside the range of `name` over the lane's
+        runs with `counts`, negative inside; the widening allowed,
+        max(floor or 1e-8, 10 x spread); how many runs have those counts),
+        or None when no run has them."""
+        match = [v[name] for c, v in self.rows[lane] if c == counts]
+        if not match:
+            return None
+        runs = np.stack(match)
+        got = np.asarray(got, np.float64)
+        off = float(np.max(np.maximum(runs.min(0) - got, got - runs.max(0))))
+        return off, max(floor or 1e-8, 10.0 * self.spread(lane, name)), \
+            len(match)
+
+    def misses(self, counts, values, floor=None):
+        """The port's (counts [B, C], values name -> [B, ...]) against the
+        envelope: a message for each lane whose counts no run shows and
+        for each lane and quantity that lies farther outside the range of
+        the runs with its counts than the widening allows (`margin`; floor
+        name -> absolute floor); empty when every lane is held."""
+        floor = floor or {}
+        out = []
+        for b in range(len(self.rows)):
+            c = tuple(int(v) for v in counts[b])
+            for name, got in values.items():
+                m = self.margin(b, c, name, got[b], floor.get(name))
+                if m is None:
+                    out.append(f"lane {b}: counts {c} in none of "
+                               f"{len(self.rows[b])} JAX runs "
+                               f"{sorted(self.counts(b))}")
+                    break
+                off, w, n = m
+                if not off <= w:
+                    out.append(f"lane {b}: {name} {off:.3e} outside {n} "
+                               f"run(s) with counts {c}, allowed {w:.3e}")
+        return out
+
+
+def jax_envelope(run, x0, *args, read=read_alm, lanes=False,
+                 wrap=jnp.asarray):
+    """Run `run(wrap(x0 * (1 + e)), *args)` at e = 0 and each e in ULP_EPS,
+    read each result into (counts [B, C], values) and return the Envelope.
+
+    With `lanes`, `run` is a batched solve whose args are per lane along
+    their leading axis, and the lanes whose counts move at one of EPS (up
+    to 1e-13) get RUNS_PER_LANE more runs each: batches of x0's width
+    filled with copies of those lanes in turn, x0 times (1 + u) with u
+    drawn per element within +-1e-15 from a fixed seed.  A lane near a
+    decision then has JAX's runs on both sides of it, drawn without regard
+    to the port's result."""
+    x0 = np.asarray(x0)
+    base_counts, values = read(run(wrap(x0), *args))
+    env = Envelope(base_counts.shape[0])
+    env.add(base_counts, values)
+    moving = set()
+    probe = tuple(e for e in EPS if e not in ULP_EPS) if lanes else ()
+    for e in ULP_EPS + probe:
+        c, v = read(run(wrap(x0 * (1.0 + e)), *args))
+        if e in ULP_EPS:
+            env.add(c, v)
+        moving |= set(np.nonzero((c != base_counts).any(1))[0].tolist())
+    if not lanes:
+        return env
+    n = x0.shape[0]
+    order = np.resize(sorted(moving), RUNS_PER_LANE * len(moving))
+    rng = np.random.default_rng(0)
+    for k in range(0, len(order), n):
+        idx = np.resize(order[k:k + n], n)
+        x = x0[idx] * (1.0 + rng.uniform(-1e-15, 1e-15, x0[idx].shape))
+        lane_args = jax.tree.map(lambda a: wrap(np.asarray(a)[idx]), args)
+        c, v = read(run(wrap(x), *lane_args))
+        m = min(n, len(order) - k)
+        env.add(c[:m], {name: a[:m] for name, a in v.items()}, lanes=idx[:m])
+    return env
+
+
+def assert_in_envelope(env, counts, values, floor=None):
+    """The port's counts [B, C] and values (name -> [B, ...]) lie in the
+    JAX envelope `env` on every lane (Envelope.misses)."""
+    miss = env.misses(counts, values, floor)
+    assert not miss, "\n".join(miss)
+
+
+# ---------------------------------------------------------------------------
 # Front-end cases
 # ---------------------------------------------------------------------------
 
