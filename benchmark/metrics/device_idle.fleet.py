@@ -1,0 +1,5 @@
+"""Share of the traced ticks' wall time in which the device ran nothing."""
+
+
+def read(run):
+    return None if run.trace is None else run.trace.idle_percent()
