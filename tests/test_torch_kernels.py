@@ -809,10 +809,15 @@ def test_admm_kernel_matches_twin_on_card(card, n, m):
         d.l[1, 1], d.u[1, 1] = -1.0, -1.0
     # lane 2: failed factorization
     d.minv[2] = float("nan")
-    before = admm.launches["admm_iterations"]
+    before = dict(admm.launches)
     got = admm.admm_iterations(d, s, n_iters=400, **ADMM_KW)
     torch.cuda.synchronize()
-    assert admm.launches["admm_iterations"] == before + 1
+    # the launch counts, and under its instantiation alone as well
+    which = "admm_iterations_" + admm.variant(n, m, torch.float32)
+    assert which in ("admm_iterations_fixed", "admm_iterations_runtime")
+    for key in admm.launches:
+        grew = 1 if key in ("admm_iterations", which) else 0
+        assert admm.launches[key] == before[key] + grew, key
     want = admm.admm_iterations_twin(d, s, n_iters=400, **ADMM_KW)
     assert got.done.all() and want.done.all()
     assert int(got.it[0]) == 1 == int(want.it[0])
@@ -1130,10 +1135,9 @@ def test_admm_sparse_variant_matches_twin_at_a_fixed_count_on_card(
     got = admm.launch_variant("sparse", d, s, n_iters=400, **kw)
     want = admm.admm_iterations_twin(d, s, n_iters=400, **kw)
     torch.cuda.synchronize()
-    for key in ("admm_iterations", "admm_iterations_sparse"):
-        assert admm.launches[key] == before[key] + 1
-    assert admm.launches["admm_iterations_global"] \
-        == before["admm_iterations_global"]
+    for key in admm.launches:
+        grew = key in ("admm_iterations", "admm_iterations_sparse")
+        assert admm.launches[key] == before[key] + grew, key
     assert torch.equal(got.it, want.it) and int(got.it.min()) == 400
     assert _rel(got.x, want.x) < tol and _rel(got.y, want.y) < tol
     assert _rel(got.z, want.z) < tol
@@ -1207,10 +1211,9 @@ def test_admm_dense_lane_is_served_by_the_global_variant_on_card(card,
     before = dict(admm.launches)
     out = admm.admm_iterations(d, s, n_iters=5, **ADMM_KW)
     torch.cuda.synchronize()
-    assert admm.launches["admm_iterations_global"] \
-        == before["admm_iterations_global"] + 1
-    assert admm.launches["admm_iterations_sparse"] \
-        == before["admm_iterations_sparse"]
+    for key in admm.launches:
+        grew = key in ("admm_iterations", "admm_iterations_global")
+        assert admm.launches[key] == before[key] + grew, key
     assert int(out.it[0]) == 5
     with pytest.raises(ValueError, match="does not fit"):
         admm.launch_variant("sparse", d, s, n_iters=5, **ADMM_KW)

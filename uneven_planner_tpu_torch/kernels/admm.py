@@ -35,9 +35,8 @@ per launch.
 No gradient: nothing differentiates through the QP.
 
 `launches` counts kernel launches: "admm_iterations" every launch of K6,
-whichever instantiation, and "admm_iterations_sparse" and
-"admm_iterations_global" the launches of those two among them; only the
-wrapper adds to it.
+whichever instantiation, and "admm_iterations_<instantiation>" the launches
+of each among them; only the wrapper adds to it.
 """
 
 from __future__ import annotations
@@ -48,11 +47,13 @@ from typing import NamedTuple
 import torch
 
 from uneven_planner_tpu_torch.kernels.build import CudaLibrary
+from uneven_planner_tpu_torch.utils.profiling import read_host, span
 
-# "admm_iterations" counts every launch of K6, "admm_iterations_sparse"
-# and "admm_iterations_global" the launches of those instantiations among
-# them
-launches = {"admm_iterations": 0, "admm_iterations_sparse": 0,
+# "admm_iterations" counts every launch of K6, "admm_iterations_fixed",
+# "_runtime", "_sparse" and "_global" the launches of each instantiation
+# among them
+launches = {"admm_iterations": 0, "admm_iterations_fixed": 0,
+            "admm_iterations_runtime": 0, "admm_iterations_sparse": 0,
             "admm_iterations_global": 0}
 
 # bytes of shared memory one thread block can have on sm_90
@@ -176,12 +177,14 @@ def variant(n: int, m: int, dtype, nnz=None) -> str:
 def nonzero_counts(d: ADMMData) -> tuple:
     """(nnz_a, nnz_p): the largest count over the lanes of A's and of P's
     entries that are not exactly zero (a NaN counts), as the sparse variant
-    compresses them.  Counted on the device; one host read."""
+    compresses them.  Counted on the device in the span `up.qp.nnz`; one
+    host read, under "nonzero_counts" of `utils.profiling.host_reads`."""
     if d.A.shape[0] == 0:
         return 0, 0
-    counts = torch.stack([(d.A != 0).sum((1, 2)).amax(),
-                          (d.P != 0).sum((1, 2)).amax()])
-    nnz_a, nnz_p = counts.tolist()
+    with span("up.qp.nnz"):
+        counts = torch.stack([(d.A != 0).sum((1, 2)).amax(),
+                              (d.P != 0).sum((1, 2)).amax()])
+        nnz_a, nnz_p = read_host("nonzero_counts", counts)
     return int(nnz_a), int(nnz_p)
 
 
@@ -366,6 +369,5 @@ def launch_variant(which: str, d: ADMMData, s: ADMMState, *, sigma: float,
         msg = lib.admm_error_string(err).decode()
         raise RuntimeError(f"admm_iterations launch failed: {msg} ({err})")
     launches["admm_iterations"] += 1
-    if which in ("sparse", "global"):
-        launches[f"admm_iterations_{which}"] += 1
+    launches[f"admm_iterations_{which}"] += 1
     return out

@@ -34,6 +34,7 @@ from uneven_planner_tpu_torch.solver import admm_qp
 # IEEE division by a scalar (`_wrap_towards` floors a quotient, and on the GPU
 # PyTorch would multiply by the reciprocal instead)
 from uneven_planner_tpu_torch.terrain.grid import _div
+from uneven_planner_tpu_torch.utils.profiling import read_host, span
 
 DIFF = 1
 ACKER = 2
@@ -339,7 +340,10 @@ def mpc_step(now_state, xref, dref, output_prev, output_buff,
     The loop stops when every lane is done; a done lane is frozen.  On CUDA
     tensors the QP goes through the ADMM kernel in float32 or float64, the
     condensed QP (`cfg.qp_condense`, n = 2 (T - d)) and the full QP
-    (`qp_condense=False`, n = 150, m = 208 at T = 30) alike."""
+    (`qp_condense=False`, n = 150, m = 208 at T = 30) alike.  Spans:
+    `up.mpc_step`, one `up.mpc_step.pass` a pass with the assembly's
+    `up.mpc_step.assemble` and `solve_qp`'s under it; the check that ends
+    the loop early is a counted host read ("mpc_step.done")."""
     T, d = cfg.predict_steps, cfg.delay_num
     H = T - d
     dimx = 3 * H
@@ -350,20 +354,21 @@ def mpc_step(now_state, xref, dref, output_prev, output_buff,
         else cfg.qp_scan_iters
 
     def qp_pass(output, y_prev):
-        xbar = predict_motion(now_state, output, cfg)
-        if cfg.qp_condense:
-            P, q, A, l, u = assemble_qp_condensed(xbar, output, xref, dref,
-                                                  cfg)
-            # warm start: previous inputs (primal), dual carried across
-            # relinearizations (the OSQP warm start of mpc.cpp:518)
-            x_ws = output[:, :, d:].transpose(1, 2).reshape(B, -1)
-        else:
-            P, q, A, l, u = assemble_qp(xbar, output, xref, dref, cfg)
-            # primal from the nonlinear rollout (near-feasible for the
-            # dynamics rows) + previous inputs
-            x_ws = torch.cat([xbar[:, d + 1:].reshape(B, -1),
-                              output[:, :, d:].transpose(1, 2)
-                              .reshape(B, -1)], dim=1)
+        with span("up.mpc_step.assemble"):
+            xbar = predict_motion(now_state, output, cfg)
+            if cfg.qp_condense:
+                P, q, A, l, u = assemble_qp_condensed(xbar, output, xref,
+                                                      dref, cfg)
+                # warm start: previous inputs (primal), dual carried across
+                # relinearizations (the OSQP warm start of mpc.cpp:518)
+                x_ws = output[:, :, d:].transpose(1, 2).reshape(B, -1)
+            else:
+                P, q, A, l, u = assemble_qp(xbar, output, xref, dref, cfg)
+                # primal from the nonlinear rollout (near-feasible for the
+                # dynamics rows) + previous inputs
+                x_ws = torch.cat([xbar[:, d + 1:].reshape(B, -1),
+                                  output[:, :, d:].transpose(1, 2)
+                                  .reshape(B, -1)], dim=1)
         sol = admm_qp.solve_qp(
             P, q, A, l, u, rho=cfg.qp_rho, sigma=cfg.qp_sigma,
             alpha=cfg.qp_alpha, eps_abs=cfg.qp_abs_tol,
@@ -382,38 +387,41 @@ def mpc_step(now_state, xref, dref, output_prev, output_buff,
         parts = [output_buff[:, :d].transpose(1, 2)] if d > 0 else []
         return torch.cat(parts + [un], dim=2), sol.iters, y_out, ok
 
-    nc = (4 * H - 2) if cfg.qp_condense else (2 * H + dimx + 2 * H - 2)
-    izero = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
-    output = output_prev
-    y = now_state.new_zeros((B, nc))
-    it, qp_iters, qp_max, capped, failed = (izero() for _ in range(5))
-    du = now_state.new_full((B,), float("inf"))
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    for k in range(max_sqp):
-        if k > 0 and bool(done.all()):
-            break
-        out, qpi, y_new, ok = qp_pass(output, y)
-        live = ~done
-        du = torch.where(live, (out - output).abs().sum((-1, -2)), du)
-        output = torch.where(live[:, None, None], out, output)
-        y = torch.where(live[:, None], y_new, y)
-        it = it + live.to(torch.int32)
-        qp_iters = torch.where(live, qp_iters + qpi, qp_iters)
-        qp_max = torch.where(live, torch.maximum(qp_max, qpi), qp_max)
-        capped = capped + (live & (qpi >= budget)).to(torch.int32)
-        failed = failed + (live & ~ok).to(torch.int32)
-        done = done | (live & ((du <= cfg.du_threshold) | (it >= max_sqp)))
+    with span("up.mpc_step"):
+        nc = (4 * H - 2) if cfg.qp_condense else (2 * H + dimx + 2 * H - 2)
+        izero = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)
+        output = output_prev
+        y = now_state.new_zeros((B, nc))
+        it, qp_iters, qp_max, capped, failed = (izero() for _ in range(5))
+        du = now_state.new_full((B,), float("inf"))
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        for k in range(max_sqp):
+            if k > 0 and read_host("mpc_step.done", done.all()):
+                break
+            with span("up.mpc_step.pass"):
+                out, qpi, y_new, ok = qp_pass(output, y)
+                live = ~done
+                du = torch.where(live, (out - output).abs().sum((-1, -2)), du)
+                output = torch.where(live[:, None, None], out, output)
+                y = torch.where(live[:, None], y_new, y)
+                it = it + live.to(torch.int32)
+                qp_iters = torch.where(live, qp_iters + qpi, qp_iters)
+                qp_max = torch.where(live, torch.maximum(qp_max, qpi), qp_max)
+                capped = capped + (live & (qpi >= budget)).to(torch.int32)
+                failed = failed + (live & ~ok).to(torch.int32)
+                done = done | (live & ((du <= cfg.du_threshold)
+                                       | (it >= max_sqp)))
 
-    cmd = output[:, :, d]
-    if d > 0:
-        new_buff = torch.cat([output_buff[:, 1:d], cmd[:, None, :],
-                              output_buff[:, d:]], dim=1)
-    else:
-        new_buff = output_buff
-    return MPCStepResult(cmd=cmd, output=output, output_buff=new_buff,
-                         qp_iters=qp_iters, sqp_iters=it, du=du,
-                         qp_iters_max=qp_max, qp_capped=capped,
-                         qp_failed=failed)
+        cmd = output[:, :, d]
+        if d > 0:
+            new_buff = torch.cat([output_buff[:, 1:d], cmd[:, None, :],
+                                  output_buff[:, d:]], dim=1)
+        else:
+            new_buff = output_buff
+        return MPCStepResult(cmd=cmd, output=output, output_buff=new_buff,
+                             qp_iters=qp_iters, sqp_iters=it, du=du,
+                             qp_iters_max=qp_max, qp_capped=capped,
+                             qp_failed=failed)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from uneven_planner_tpu_torch.config import MPCConfig
 from uneven_planner_tpu_torch.minco.traj import SE2Traj, expand_traj
 from uneven_planner_tpu_torch.mpc import tracker
 from uneven_planner_tpu_torch.mpc.tracker import _div
+from uneven_planner_tpu_torch.utils.profiling import span
 
 
 def plant_step(state, cmd, cfg: MPCConfig, dt: float, cmd_valid=True):
@@ -124,20 +125,27 @@ def tick(traj: SE2Traj, s: RollState, cfg: MPCConfig, ctrl_dt: float,
     """One control tick of every lane (the episode loop of mpc.cpp:122-192):
     sample the reference horizon, smooth yaw, run the MPC, apply the command
     to the plant.  The error is measured before the yaw smoothing; at the
-    goal the command is zeroed but the MPC still runs."""
-    refs, at_goal = tracker.get_ref_points(traj, s.t, cfg)
-    err = torch.linalg.vector_norm(refs[:, :2, 0] - s.state[:, :2], dim=-1)
-    refs = tracker.smooth_yaw(refs, s.state[:, 2])
-    res = tracker.mpc_step(s.state, refs, torch.zeros_like(refs[:, :2]),
-                           s.output, s.buff, cfg, max_sqp_iter=max_sqp_iter)
-    cmd = torch.where(at_goal[:, None], torch.zeros_like(res.cmd), res.cmd)
-    if plant_params is None:
-        state, act = plant_step(s.state, cmd, cfg, ctrl_dt), s.act
-    else:
-        state, act = plant_step_physical(s.state, s.act, cmd, cfg, ctrl_dt,
-                                         plant_params)
-    nxt = RollState(state=state, act=act, output=res.output,
-                     buff=res.output_buff, t=s.t + ctrl_dt)
+    goal the command is zeroed but the MPC still runs.  Spans: `up.tick`,
+    and under it `up.tick.refs`, `mpc_step`'s and `up.tick.plant`."""
+    with span("up.tick"):
+        with span("up.tick.refs"):
+            refs, at_goal = tracker.get_ref_points(traj, s.t, cfg)
+            err = torch.linalg.vector_norm(refs[:, :2, 0] - s.state[:, :2],
+                                           dim=-1)
+            refs = tracker.smooth_yaw(refs, s.state[:, 2])
+        res = tracker.mpc_step(s.state, refs, torch.zeros_like(refs[:, :2]),
+                               s.output, s.buff, cfg,
+                               max_sqp_iter=max_sqp_iter)
+        with span("up.tick.plant"):
+            cmd = torch.where(at_goal[:, None], torch.zeros_like(res.cmd),
+                              res.cmd)
+            if plant_params is None:
+                state, act = plant_step(s.state, cmd, cfg, ctrl_dt), s.act
+            else:
+                state, act = plant_step_physical(s.state, s.act, cmd, cfg,
+                                                 ctrl_dt, plant_params)
+            nxt = RollState(state=state, act=act, output=res.output,
+                            buff=res.output_buff, t=s.t + ctrl_dt)
     return nxt, (s.state, cmd, err, at_goal), res
 
 

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from uneven_planner_tpu_torch.kernels import admm as kadmm
+from uneven_planner_tpu_torch.utils.profiling import read_host, span
 
 
 class QPSolution(NamedTuple):
@@ -233,15 +234,20 @@ def solve_qp(P, q, A, l, u, *, rho: float = 0.1, sigma: float = 1e-6,
     ones for float32 QPs that fit (the condensed tracking QP), the sparse
     one for the QPs whose nonzeros fit in shared memory (the full tracking
     QP, n = 150, m = 208, and the float64 condensed one) and the
-    global-memory one for the rest."""
+    global-memory one for the rest.  Spans: `up.qp.setup` (with adaptive rho
+    also each rho update), `up.qp.admm` around each launch, `up.qp.finish`
+    (unscaling, polish)."""
     B = q.shape[0]
-    data, state, D, E, is_eq = setup_qp(P, q, A, l, u, rho=rho, sigma=sigma,
-                                        x0=x0, y0=y0, ruiz=ruiz)
+    with span("up.qp.setup"):
+        data, state, D, E, is_eq = setup_qp(P, q, A, l, u, rho=rho,
+                                            sigma=sigma, x0=x0, y0=y0,
+                                            ruiz=ruiz)
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               max_iter=max_iter)
     budget = max_iter if fixed_iters is None else fixed_iters
     if not adaptive_rho:
-        state = kadmm.admm_iterations(data, state, n_iters=budget, **kw)
+        with span("up.qp.admm"):
+            state = kadmm.admm_iterations(data, state, n_iters=budget, **kw)
     else:
         # Periodic adaptive rho (OSQP 5.2 eq. 29): the rule looks at the
         # residuals of iteration `it` whenever it % interval == 0, which,
@@ -250,33 +256,37 @@ def solve_qp(P, q, A, l, u, *, rho: float = 0.1, sigma: float = 1e-6,
         ran = 0
         while ran < budget:
             seg = min(adaptive_rho_interval, budget - ran)
-            state = kadmm.admm_iterations(data, state, n_iters=seg, **kw)
+            with span("up.qp.admm"):
+                state = kadmm.admm_iterations(data, state, n_iters=seg, **kw)
             ran += seg
-            if bool(state.done.all()):
+            if read_host("solve_qp.done", state.done.all()):
                 break
-            ratio = torch.sqrt(
-                (state.r_prim / torch.clamp(state.prim_norm, min=1e-12))
-                / torch.clamp(state.r_dual
-                              / torch.clamp(state.dual_norm, min=1e-12),
-                              min=1e-12))
-            rho_prop = torch.clamp(rho_s * ratio, 1e-6, 1e6)
-            adapt = (state.it % adaptive_rho_interval == 0) \
-                & ((rho_prop > 5.0 * rho_s) | (rho_prop < rho_s / 5.0)) \
-                & ~state.done
-            if bool(adapt.any()):
-                rho_s = torch.where(adapt, rho_prop, rho_s)
-                rv_new, mi_new = _factor(data.P, data.A, is_eq, rho_s,
-                                         sigma)
-                data = data._replace(
-                    rho_vec=torch.where(adapt[:, None], rv_new,
-                                        data.rho_vec),
-                    minv=torch.where(adapt[:, None, None], mi_new,
-                                     data.minv))
+            # the rule and the refactorization it asks for
+            with span("up.qp.setup"):
+                ratio = torch.sqrt(
+                    (state.r_prim / torch.clamp(state.prim_norm, min=1e-12))
+                    / torch.clamp(state.r_dual
+                                  / torch.clamp(state.dual_norm, min=1e-12),
+                                  min=1e-12))
+                rho_prop = torch.clamp(rho_s * ratio, 1e-6, 1e6)
+                adapt = (state.it % adaptive_rho_interval == 0) \
+                    & ((rho_prop > 5.0 * rho_s) | (rho_prop < rho_s / 5.0)) \
+                    & ~state.done
+                if read_host("solve_qp.adapt", adapt.any()):
+                    rho_s = torch.where(adapt, rho_prop, rho_s)
+                    rv_new, mi_new = _factor(data.P, data.A, is_eq, rho_s,
+                                             sigma)
+                    data = data._replace(
+                        rho_vec=torch.where(adapt[:, None], rv_new,
+                                            data.rho_vec),
+                        minv=torch.where(adapt[:, None, None], mi_new,
+                                         data.minv))
 
-    # unscale, then polish on the original data
-    x_u = D * state.x
-    y_u = data.cinv[:, None] * E * state.y
-    if polish:
-        x_u, y_u = _polish(P, q, A, l, u, x_u, y_u)
+    with span("up.qp.finish"):
+        # unscale, then polish on the original data
+        x_u = D * state.x
+        y_u = data.cinv[:, None] * E * state.y
+        if polish:
+            x_u, y_u = _polish(P, q, A, l, u, x_u, y_u)
     return QPSolution(x=x_u, y=y_u, iters=state.it, r_prim=state.r_prim,
                       r_dual=state.r_dual, converged=state.it < max_iter)

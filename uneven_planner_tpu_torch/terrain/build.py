@@ -45,6 +45,7 @@ from uneven_planner_tpu_torch.config import MapConfig
 from uneven_planner_tpu_torch.kernels.gather import gather_rows
 from uneven_planner_tpu_torch.terrain import grid as tgrid
 from uneven_planner_tpu_torch.terrain.grid import _div
+from uneven_planner_tpu_torch.utils.profiling import span
 
 # device bytes the temporaries of one dispatch may take when `chunk` is not
 # given: ~8 float32 values live per (fit, candidate) pair at the peak of
@@ -426,7 +427,9 @@ def construct_map(points: np.ndarray, cfg: MapConfig,
     float32, the cloud's precision; the field is returned in `dtype`.
     `timings`, when given, receives the seconds of the host's bucketing
     and seeding ("host_s") and of the device sweep ("device_s", ending in
-    a synchronisation)."""
+    a synchronisation).  Spans: `up.construct_map`, and under it
+    `.buckets`, `.seeds` (the nearest-z seeds; not in mode "xy") and
+    `.sweep`."""
     dev = resolve_device(device)
     nx, ny, nyaw = cfg.voxel_num
     ox, oy, oyaw = cfg.map_origin
@@ -436,65 +439,78 @@ def construct_map(points: np.ndarray, cfg: MapConfig,
         raise ValueError(f"unknown map-building mode {mode!r}")
     f32 = lambda a: torch.from_numpy(np.ascontiguousarray(
         a, dtype=np.float32)).to(dev)
-    t0 = time.perf_counter()
-
-    if mode == "yawshare":
-        # the 5 x 5 window of 0.2 m buckets covers the probe circle plus
-        # the ellipsoid only while the probe stays within one bucket
-        if cfg.probe_offset > max(cfg.ellipsoid_x, cfg.ellipsoid_y,
-                                  cfg.ellipsoid_z):
-            raise ValueError("yawshare needs probe_offset <= the largest "
-                             "ellipsoid semi-axis (the bucket size)")
-        b = build_buckets3d(points, cfg, capacity=bucket_capacity, device=dev)
-        seeds = f32(nearest_z_seeds(points, cfg).reshape(nx * ny, nyaw))
-        ids = np.arange(nx * ny, dtype=np.int64)
-        cell_xy = f32(np.stack([((ids // ny) + 0.5) * cfg.xy_resolution + ox,
-                                ((ids % ny) + 0.5) * cfg.xy_resolution + oy],
-                               axis=1))
-        yaws = f32((np.arange(nyaw) + 0.5) * cfg.yaw_resolution + oyaw)
-        t1 = time.perf_counter()
-        step = _per_dispatch(chunk, b, (5, 5, min(6, b.nb[2])), nyaw, dev)
-        values = torch.zeros((nx * ny, nyaw, 4), dtype=torch.float32,
-                             device=dev)
-        for it in range(cfg.iter_num):
-            for lo in range(0, nx * ny, step):
-                s = slice(lo, lo + step)
-                values[s] = _fit_yaw_block(cell_xy[s], yaws, values[s],
-                                           seeds[s], b, cfg, it == 0)
-    else:
-        ids = np.arange(nx * ny * nyaw, dtype=np.int64)
-        cells = f32(np.stack([
-            ((ids // (ny * nyaw)) + 0.5) * cfg.xy_resolution + ox,
-            (((ids // nyaw) % ny) + 0.5) * cfg.xy_resolution + oy,
-            ((ids % nyaw) + 0.5) * cfg.yaw_resolution + oyaw], axis=1))
-        if mode == "xyz":
-            b = build_buckets3d(points, cfg, capacity=bucket_capacity,
-                                device=dev)
-            seeds = f32(nearest_z_seeds(points, cfg))
-            window = (3, 3, 3)
-            fit = lambda c, v, s, first: _fit_cell3d(
-                c, v, seeds[s], b, cfg, first)
+    with span("up.construct_map"):
+        t0 = time.perf_counter()
+        if mode == "yawshare":
+            # the 5 x 5 window of 0.2 m buckets covers the probe circle plus
+            # the ellipsoid only while the probe stays within one bucket
+            if cfg.probe_offset > max(cfg.ellipsoid_x, cfg.ellipsoid_y,
+                                      cfg.ellipsoid_z):
+                raise ValueError("yawshare needs probe_offset <= the largest "
+                                 "ellipsoid semi-axis (the bucket size)")
+            with span("up.construct_map.buckets"):
+                b = build_buckets3d(points, cfg, capacity=bucket_capacity,
+                                    device=dev)
+            with span("up.construct_map.seeds"):
+                seeds = f32(nearest_z_seeds(points, cfg)
+                            .reshape(nx * ny, nyaw))
+            ids = np.arange(nx * ny, dtype=np.int64)
+            cell_xy = f32(np.stack(
+                [((ids // ny) + 0.5) * cfg.xy_resolution + ox,
+                 ((ids % ny) + 0.5) * cfg.xy_resolution + oy], axis=1))
+            yaws = f32((np.arange(nyaw) + 0.5) * cfg.yaw_resolution + oyaw)
+            t1 = time.perf_counter()
+            with span("up.construct_map.sweep"):
+                step = _per_dispatch(chunk, b, (5, 5, min(6, b.nb[2])), nyaw,
+                                     dev)
+                values = torch.zeros((nx * ny, nyaw, 4), dtype=torch.float32,
+                                     device=dev)
+                for it in range(cfg.iter_num):
+                    for lo in range(0, nx * ny, step):
+                        s = slice(lo, lo + step)
+                        values[s] = _fit_yaw_block(cell_xy[s], yaws,
+                                                   values[s], seeds[s], b,
+                                                   cfg, it == 0)
         else:
-            b = build_buckets(points, cfg, capacity=bucket_capacity,
-                              device=dev)
-            window = (3, 3)
-            fit = lambda c, v, s, first: _fit_cell(c, v, b, cfg, first)
-        t1 = time.perf_counter()
-        step = _per_dispatch(chunk, b, window, 1, dev)
-        values = torch.zeros((nx * ny * nyaw, 4), dtype=torch.float32,
-                             device=dev)
-        for it in range(cfg.iter_num):
-            for lo in range(0, nx * ny * nyaw, step):
-                s = slice(lo, lo + step)
-                values[s] = fit(cells[s], values[s], s, it == 0)
+            ids = np.arange(nx * ny * nyaw, dtype=np.int64)
+            cells = f32(np.stack([
+                ((ids // (ny * nyaw)) + 0.5) * cfg.xy_resolution + ox,
+                (((ids // nyaw) % ny) + 0.5) * cfg.xy_resolution + oy,
+                ((ids % nyaw) + 0.5) * cfg.yaw_resolution + oyaw], axis=1))
+            if mode == "xyz":
+                with span("up.construct_map.buckets"):
+                    b = build_buckets3d(points, cfg,
+                                        capacity=bucket_capacity, device=dev)
+                with span("up.construct_map.seeds"):
+                    seeds = f32(nearest_z_seeds(points, cfg))
+                window = (3, 3, 3)
+                fit = lambda c, v, s, first: _fit_cell3d(
+                    c, v, seeds[s], b, cfg, first)
+            else:
+                with span("up.construct_map.buckets"):
+                    b = build_buckets(points, cfg, capacity=bucket_capacity,
+                                      device=dev)
+                window = (3, 3)
+                fit = lambda c, v, s, first: _fit_cell(c, v, b, cfg, first)
+            t1 = time.perf_counter()
+            with span("up.construct_map.sweep"):
+                step = _per_dispatch(chunk, b, window, 1, dev)
+                values = torch.zeros((nx * ny * nyaw, 4),
+                                     dtype=torch.float32, device=dev)
+                for it in range(cfg.iter_num):
+                    for lo in range(0, nx * ny * nyaw, step):
+                        s = slice(lo, lo + step)
+                        values[s] = fit(cells[s], values[s], s, it == 0)
 
-    data = values.reshape(nx, ny, nyaw, 4).to(dtype)
-    grid = tgrid.from_buffers(
-        data, min_cnormal=cfg.min_cnormal, max_rho=cfg.max_rho,
-        xy_resolution=cfg.xy_resolution, yaw_resolution=cfg.yaw_resolution,
-        origin=cfg.map_origin, gravity=cfg.gravity)
-    if timings is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        timings.update(host_s=t1 - t0, device_s=time.perf_counter() - t1)
+        data = values.reshape(nx, ny, nyaw, 4).to(dtype)
+        grid = tgrid.from_buffers(
+            data, min_cnormal=cfg.min_cnormal, max_rho=cfg.max_rho,
+            xy_resolution=cfg.xy_resolution,
+            yaw_resolution=cfg.yaw_resolution, origin=cfg.map_origin,
+            gravity=cfg.gravity)
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings.update(host_s=t1 - t0,
+                           device_s=time.perf_counter() - t1)
     return grid

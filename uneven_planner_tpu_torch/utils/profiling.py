@@ -6,8 +6,11 @@
   object is yielded, so `device_time_by_kernel` can read it.
 - `device_time_by_kernel(prof)`: total device time and the time by kernel
   name of a profiled run.
-- `Stage`: named wall-clock stages that end with a device synchronization,
-  collected into a report (the reference's per-stage millisecond prints).
+- `span(name)`: a span of the program (named with SPAN_PREFIX) on the
+  profiler's own clock while a profiler records, a shared no-op otherwise.
+- `host_reads`, `read_host(site, t)`, `reset_host_reads()`: the count, by
+  site, of the explicit reads of a device tensor's value on the host on the
+  tracking tick's and the QP's paths.
 - `solver_stats`: the summary of a batched ALMResult (converged share,
   iteration percentiles) behind the solves/s figure.
 """
@@ -16,8 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
@@ -57,31 +59,41 @@ def device_time_by_kernel(prof):
     return total, rows
 
 
-class Stage:
-    """Wall-clock stage timer that synchronizes the device at the end of a
-    stage; accumulates the times by name."""
+# the program's spans are named with this prefix
+SPAN_PREFIX = "up."
+_NO_SPAN = contextlib.nullcontext()
 
-    def __init__(self):
-        self.times: Dict[str, List[float]] = {}
 
-    @contextlib.contextmanager
-    def __call__(self, name: str, sync=None):
-        """Time the block; with `sync`, a tensor the block computes, the
-        time ends when its device has finished."""
-        t0 = time.perf_counter()
-        yield
-        if sync is not None and sync.device.type == "cuda":
-            torch.cuda.synchronize(sync.device)
-        self.times.setdefault(name, []).append(time.perf_counter() - t0)
+def span(name: str):
+    """The program's span `name` (SPAN_PREFIX first) while a profiler
+    records: a RecordFunction of the operator kind, so that the profile
+    holds it on the host's timeline and on the profiler's clock, with no
+    mirror on the device's timeline (`record_function` makes one, which a
+    reader of the device's operations would take for one).  With no
+    profiler recording, the shared no-op context and nothing else."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    # a private class of PyTorch, checked on 2.11 and 2.13; a rename fails
+    # tests/test_torch_spans.py on the CPU
+    return torch._C._profiler._RecordFunctionFast(name)
 
-    def report(self) -> str:
-        lines = []
-        for name, ts in self.times.items():
-            arr = np.asarray(ts) * 1e3
-            lines.append(f"{name}: n={len(arr)} mean={arr.mean():.1f}ms "
-                         f"p50={np.percentile(arr, 50):.1f}ms "
-                         f"max={arr.max():.1f}ms")
-        return "\n".join(lines)
+
+# explicit reads of a device tensor's value on the host on the tracking
+# tick's and the QP's paths, by site; only `read_host` adds to it
+host_reads = {"mpc_step.done": 0, "nonzero_counts": 0, "solve_qp.done": 0,
+              "solve_qp.adapt": 0}
+
+
+def reset_host_reads():
+    for k in host_reads:
+        host_reads[k] = 0
+
+
+def read_host(site: str, t: torch.Tensor):
+    """`t.tolist()`, counted under `site` of `host_reads` (on the card a
+    copy to the host that waits for the device)."""
+    host_reads[site] += 1
+    return t.tolist()
 
 
 def solver_stats(result) -> Dict[str, float]:
