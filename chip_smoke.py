@@ -7,7 +7,7 @@
 Phases, each of which must pass (exit code 1 otherwise):
   1. device   CUDA present, full-fp32 matmul settings, card name and power
               limit from nvidia-smi;
-  2. build    the terrain-lookup, gather, elementwise and ADMM kernels,
+  2. build    the terrain-lookup, gather, elementwise, ADMM and Ruiz kernels,
               compiled with nvcc from uneven_planner_tpu_torch/csrc, and
               K2, K4 and K3's word path as they were before their
               redesigns (chip_studies/k2_before.cu, k4_before.cu,
@@ -32,7 +32,11 @@ Phases, each of which must pass (exit code 1 otherwise):
               sparse and global-memory variants side by side on the full QP
               of a real tick (n = 150, m = 208; 256 lanes in fp32, 64 in
               fp64), then the global one on its own path (solve_qp on dense
-              QPs of that shape); K1 and K2 in float64 on the hill grid in
+              QPs of that shape); the Ruiz equilibration (K7) on the first
+              QP of a real tick (256 lanes) of both forms in fp32 and fp64,
+              the full QP's fp64 lane in place in device memory, one
+              iteration bit for bit before the cost scale; K1 and K2 in
+              float64 on the hill grid in
               float64 at the headline's and the nested path's lookup
               counts, bit for bit with their float64 twins in every
               instantiation;
@@ -438,9 +442,11 @@ def before_library(name):
 
 def phase_build():
     from uneven_planner_tpu_torch.kernels import (admm, build, elementwise,
-                                                  gather, terrain_lookup)
+                                                  gather, ruiz,
+                                                  terrain_lookup)
     libs = [terrain_lookup.LIBRARY, gather.LIBRARY, elementwise.LIBRARY,
-            admm.LIBRARY] + [before_library(n) for n in BEFORE_SOURCES]
+            admm.LIBRARY, ruiz.LIBRARY] \
+        + [before_library(n) for n in BEFORE_SOURCES]
     t0 = time.perf_counter()
     paths = build.build_all(libs)
     for lib in libs:
@@ -1706,6 +1712,37 @@ def _tick_qps(device, lanes=MPC_LANES, warm_ticks=12):
     return cases, cfg
 
 
+def tick_qp(condense, lanes, dtype, device, seed=0, warm_ticks=2):
+    """The first QP of a tracking tick as `mpc_step` assembles it, unscaled
+    (P, q, A, l, u, with the tracker's broadcast views): `lanes` controllers
+    on the figure-eight, `warm_ticks` ticks after their start states (at
+    rest some entries of A are zero), the condensed (n = 60, m = 118) or the
+    full QP (n = 150, m = 208); returns the QP and the config."""
+    import numpy as np
+    import torch
+    from uneven_planner_tpu_torch.config import MPCConfig
+    from uneven_planner_tpu_torch.minco.traj import expand_traj
+    from uneven_planner_tpu_torch.mpc import tracker, traj_msg
+    from uneven_planner_tpu_torch.sim import rollout
+    cfg = MPCConfig(qp_condense=condense)
+    f8 = expand_traj(traj_msg.figure_eight(0.5, dtype=dtype, device=device),
+                     lanes)
+    rng = np.random.default_rng(seed)
+    s0 = np.zeros((lanes, 3))
+    s0[:, :2] = rng.uniform(-0.05, 0.05, (lanes, 2))
+    s0[:, 2] = np.pi / 4 + rng.uniform(-0.1, 0.1, lanes)
+    s = rollout.roll_init(torch.tensor(s0, dtype=dtype, device=device), cfg)
+    for _ in range(warm_ticks):
+        s, _, _ = rollout.tick(f8, s, cfg, 0.01, 3, None)
+    refs, _ = tracker.get_ref_points(f8, s.t, cfg)
+    refs = tracker.smooth_yaw(refs, s.state[:, 2])
+    xbar = tracker.predict_motion(s.state, s.output, cfg)
+    assemble = tracker.assemble_qp_condensed if condense \
+        else tracker.assemble_qp
+    return assemble(xbar, s.output, refs, torch.zeros_like(refs[:, :2]),
+                    cfg), cfg
+
+
 def _random_box_qps(device, lanes=MPC_LANES, n=60, m=118, seed=17):
     import numpy as np
     import torch
@@ -2082,21 +2119,131 @@ def phase_admm_kernel(device):
     return variants + admm_full_qp_rows(device)
 
 
+RUIZ_ITERS = 10   # `ruiz_equilibrate`'s default, OSQP's
+
+
+def ruiz_rtol(n, dtype):
+    """K7 against its twin, relative, on every output: the one place they
+    round differently is the mean of P's n column maxima in each cost
+    scale g, summed in another order on each side; a sum of n terms >= 0 is
+    within (n - 1) u of the exact sum whatever the order (u the unit
+    roundoff), so two orders differ by at most 2 n u, and the ten g's, each
+    carried into c, P and q and through the column maxima into the next
+    iteration's scales, by at most twice that together."""
+    import torch
+    return 2 * RUIZ_ITERS * n * torch.finfo(dtype).eps
+
+
+def _ruiz_gap(got, want):
+    """The largest relative gap of got from want over want's finite entries
+    that are not zero; inf where a NaN, an infinity or a zero of one side
+    is not the other's."""
+    import torch
+    inf = want.isinf()
+    if not (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.isinf(), inf)
+            and torch.equal(got[inf], want[inf])
+            and torch.equal(got == 0, want == 0)):
+        return float("inf")
+    nz = (want != 0) & want.isfinite()
+    if not bool(nz.any()):
+        return 0.0
+    return float(((got[nz] - want[nz]).abs() / want[nz].abs()).max())
+
+
+def ruiz_bytes(qp, out):
+    """Bytes K7 must move: every input's storage read once (one lane's for
+    an input broadcast over the lanes, lane stride 0) and every output
+    written once."""
+    stored = lambda t: (1 if t.stride(0) == 0 else t.shape[0]) \
+        * t[0].numel() * t.element_size()
+    return sum(map(stored, qp)) \
+        + sum(t.numel() * t.element_size() for t in out)
+
+
+def phase_ruiz_kernel(device):
+    """K7 against its twin on the same CUDA tensors, on the first QP of a
+    real tick at MPC_LANES lanes (`tick_qp`, as the tracker hands it to
+    `setup_qp`) in both forms and both dtypes: the condensed QP in shared
+    memory in float32 (the MPC phase's) and float64, the full QP in shared
+    memory in float32 (the full-QP MPC's) and in place in device memory in
+    float64 (the float64 full-QP reference's).  One iteration: D, E, Ab, lb
+    and ub bit for bit (they come before any cost scale g), Pb, qb and c
+    within `ruiz_rtol`; ten: every output within it.  Each call is one
+    launch of the instantiation its shape and dtype name.  Times: K7 and its
+    twin at ten iterations, beside the bound of `ruiz_bytes`."""
+    import torch
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    names = ("Pb", "qb", "Ab", "lb", "ub", "D", "E", "c")
+    before_g = ("D", "E", "Ab", "lb", "ub")
+    want_place = {(True, torch.float32): "shared",
+                  (True, torch.float64): "shared",
+                  (False, torch.float32): "shared",
+                  (False, torch.float64): "global"}
+    rows, bad = [], []
+    for (condense, dtype), place in want_place.items():
+        qp, _ = tick_qp(condense, MPC_LANES, dtype, device)
+        B, n = qp[1].shape
+        m = qp[3].shape[1]
+        which = ruiz.instantiation(n, m, dtype)
+        tol = ruiz_rtol(n, dtype)
+        exact, gaps, launch_ok = {}, {}, True
+        for iters in (1, RUIZ_ITERS):
+            before = dict(ruiz.launches)
+            got = ruiz.ruiz_equilibrate(*qp, iters=iters)
+            grew = {k: ruiz.launches[k] - before[k] for k in before}
+            launch_ok &= grew == {k: int(k in ("ruiz_equilibrate",
+                                               f"ruiz_equilibrate_{which}"))
+                                  for k in before}
+            want = admm_qp.ruiz_equilibrate_twin(*qp, iters=iters)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, want):
+                if iters == 1 and name in before_g:
+                    exact[name] = torch.equal(a, b)
+                else:
+                    gaps[f"{name}_{iters}"] = _ruiz_gap(a, b)
+        nbytes = ruiz_bytes(qp, got)
+        v = dict(
+            name="ruiz_equilibrate",
+            qp="condensed" if condense else "full",
+            dtype=str(dtype).replace("torch.", ""), instantiation=which,
+            shape=f"first QP of a real tick: {B} lanes, n = {n}, m = {m}, "
+            f"{str(dtype).replace('torch.', '')}, {which}",
+            bit_for_bit_before_g=exact, max_rel_gap=max(gaps.values()),
+            rel_gaps=gaps, tolerance_rel=tol, one_launch_a_call=launch_ok,
+            ms=device_ms(lambda: ruiz.ruiz_equilibrate(*qp), reps=15,
+                         inner=4),
+            plain_ms=device_ms(lambda: admm_qp.ruiz_equilibrate_twin(*qp),
+                               reps=3, inner=1),
+            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+            bytes=nbytes)
+        log("# kernel " + json.dumps(v))
+        rows.append(v)
+        if which != place or not launch_ok or not all(exact.values()) \
+                or not v["max_rel_gap"] <= tol:
+            bad.append(v)
+    if bad:
+        raise RuntimeError(f"ruiz_equilibrate disagrees with its twin or "
+                           f"was not launched as its shape says: {bad}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # the tracking path
 # ---------------------------------------------------------------------------
 
 def all_launches():
     from uneven_planner_tpu_torch.kernels import (admm, elementwise, gather,
-                                                  terrain_lookup)
+                                                  ruiz, terrain_lookup)
     return {**terrain_lookup.launches, **gather.launches,
-            **elementwise.launches, **admm.launches}
+            **elementwise.launches, **admm.launches, **ruiz.launches}
 
 
 def reset_all_launches():
     from uneven_planner_tpu_torch.kernels import (admm, elementwise, gather,
-                                                  terrain_lookup)
-    for mod in (admm, elementwise, gather, terrain_lookup):
+                                                  ruiz, terrain_lookup)
+    for mod in (admm, elementwise, gather, ruiz, terrain_lookup):
         mod.reset_launches()
 
 
@@ -2188,6 +2335,9 @@ def phase_track_full_reference(device):
     k6 = lambda la: {k: la[k] for k in ("admm_iterations",
                                         "admm_iterations_sparse",
                                         "admm_iterations_global")}
+    k7 = lambda la: {k: la[k] for k in ("ruiz_equilibrate",
+                                        "ruiz_equilibrate_shared",
+                                        "ruiz_equilibrate_global")}
     out = dict(lanes=4, ticks=40, qp="full (n = 150, m = 208)",
                max_state_diff=diff(card.states, cpu.states),
                max_cmd_diff=diff(card.cmds, cpu.cmds),
@@ -2195,7 +2345,7 @@ def phase_track_full_reference(device):
                mean_err_cpu=cpu.mean_err.tolist(),
                qp_iters_card=int(card.qp_iters.sum()),
                qp_iters_cpu=int(cpu.qp_iters.sum()),
-               launches_card=k6(launches),
+               launches_card=dict(k6(launches), **k7(launches)),
                float64=dict(
                    max_state_diff=diff(card64.states, cpu.states),
                    max_cmd_diff=diff(card64.cmds, cpu.cmds),
@@ -2212,7 +2362,8 @@ def phase_track_full_reference(device):
                    passes_cpu=int(cpu.sqp_iters.sum()),
                    launches_card=dict(
                        k6(launches64), gather_rows=launches64["gather_rows"],
-                       gather_along=launches64["gather_along"])))
+                       gather_along=launches64["gather_along"],
+                       **k7(launches64))))
     log("# track-full-ref " + json.dumps(out))
     f64 = out["float64"]
     fails = []
@@ -2230,6 +2381,12 @@ def phase_track_full_reference(device):
     for name in ("gather_rows", "gather_along"):
         if launches64[name] == 0:
             fails.append(f"{name} was never launched in the fp64 run")
+    # K7: the float32 full QP in shared memory, the float64 one in place
+    for who, la, place in (("fp32", launches, "shared"),
+                           ("fp64", launches64, "global")):
+        if la["ruiz_equilibrate"] == 0 or la["ruiz_equilibrate"] \
+                != la[f"ruiz_equilibrate_{place}"]:
+            fails.append(f"not every K7 launch of the {who} run is {place}")
     if fails:
         raise RuntimeError(f"{'; '.join(fails)}: {out}")
     return out
@@ -2313,6 +2470,10 @@ def phase_mpc(device, smi):
         fails.append("admm_iterations was never launched")
     if launches["admm_iterations"] != int(tres.sqp_iters.max(0).values.sum()):
         fails.append("K6 launches != relinearisation passes run")
+    if not launches["ruiz_equilibrate_shared"] \
+            == launches["ruiz_equilibrate"] == launches["admm_iterations"]:
+        fails.append("K7 launches != K6 launches, or not all in shared "
+                     "memory")
     for name in ("gather_rows", "gather_along"):
         if launches[name] == 0:
             fails.append(f"{name} was never launched on the tracking path")
@@ -2383,6 +2544,10 @@ def phase_mpc_full(device, smi):
         fails.append("K6 sparse launches != relinearisation passes run")
     if launches["admm_iterations"] != launches["admm_iterations_sparse"]:
         fails.append("a K6 launch on the full QP was not the sparse one")
+    if not launches["ruiz_equilibrate_shared"] \
+            == launches["ruiz_equilibrate"] == launches["admm_iterations"]:
+        fails.append("K7 launches != K6 launches on the full QP, or not all "
+                     "in shared memory")
     if fails:
         raise RuntimeError("; ".join(fails))
     return out
@@ -4062,6 +4227,29 @@ def kernel_entries(r):
                          dense_bound_ms=f64["dense_bound_ms"],
                          streamed_bytes_ms=f64["streamed_bytes_ms"],
                          iters_mean=f64["iters_mean"])))
+    # K7 on the first QP of a real tick: float32 condensed, the MPC's, with
+    # the other forms and dtypes beside it; its launches on the MPC-alone,
+    # the full-QP MPC and the pipeline runs (all in shared memory) and on
+    # the float64 full-QP reference (all in place)
+    ruizs = [w for w in admms if w["name"] == "ruiz_equilibrate"]
+    v = ruizs[0]
+    keys = ("shape", "instantiation", "bit_for_bit_before_g", "max_rel_gap",
+            "tolerance_rel", "ms", "plain_ms", "bound_ms", "bound_by")
+    entries.append(dict(
+        name="ruiz_equilibrate", route="cuda",
+        source="uneven_planner_tpu_torch/csrc/ruiz.cu",
+        replaces="no TPU kernel: jnp code at "
+        "uneven_planner_tpu/solver/admm_qp.py:133",
+        launches=mpc["launches"]["ruiz_equilibrate"],
+        launches_shared=mpc["launches"]["ruiz_equilibrate_shared"],
+        launches_mpc_full=mpc_full["launches"]["ruiz_equilibrate"],
+        launches_mpc_full_shared=mpc_full["launches"][
+            "ruiz_equilibrate_shared"],
+        launches_pipeline=pipe["launches"]["ruiz_equilibrate"],
+        launches_track_full_ref_float64_global=track_full["float64"][
+            "launches_card"]["ruiz_equilibrate_global"],
+        **{k: v[k] for k in keys}, library_ms=None,
+        other_shapes=[{k: w[k] for k in keys} for w in ruizs[1:]]))
     for e in entries[:4]:
         e["launches_pipeline"] = pipe["launches"][e["name"]]
     # K3 on the map builder's path: its launches in one full-width build
@@ -4244,7 +4432,7 @@ def main(argv=None) -> int:
             headline.scene_setup(device=dev)[1]) + phase_kernels_f64(dev),
         "gather": lambda: phase_gather_kernels(dev),
         "tanh": lambda: phase_elementwise_kernel(dev),
-        "admm": lambda: phase_admm_kernel(dev),
+        "admm": lambda: phase_admm_kernel(dev) + phase_ruiz_kernel(dev),
         "small-reference": lambda: phase_small_reference(dev),
         "headline": headline_and_profile,
         "plan-reference": lambda: phase_plan_reference(dev),

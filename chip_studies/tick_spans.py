@@ -11,20 +11,20 @@ ticks, CHUNK to a profile.  Prints, a tick on average, the device time and
 the host's own time under each program span (`up.*`, innermost at the
 launch), the device's idle time by the span and the host operation it fell
 in, where the allocator's and the synchronising runtime calls fall (span
-and PyTorch operator), K6's launches by instantiation and the host reads by
-site; then every slow tick (host clock, start to commands read, over SLOW
-times the median tick) with the spans whose own host time exceeds the
-median tick's most and the longest host operations in it.  Then, without
-the profiler, the slow ticks of the program as it is against the same
-program with `torch.cholesky_inverse` (MAGMA's, which calls `cudaMalloc` and
-`cudaFree` itself) computed by cuBLAS's triangular solve, in blocks of
-BLOCK ticks in the order magma, cublas, cublas, magma.  Then the spans'
-own cost: ticks with the program's spans against ticks with `span` stubbed
-out, under the profiler and without it, each block the first COST_TICKS
-ticks of an episode, in the order on, off, off, on, twice.  `--build`
-profiles one map build of `chip_smoke.py`'s hill cloud (mode xyz) the same
-way.  `--out` writes everything as JSON (the slow ticks all, the summary
-every key).
+and PyTorch operator), K6's and K7's launches by instantiation and the host
+reads by site; then every slow tick (host clock, start to commands read,
+over SLOW times the median tick) with the spans whose own host time
+exceeds the median tick's most and the longest host operations in it.
+Then, without the profiler, the slow ticks of the program as it is against
+the same program with `torch.cholesky_inverse` (MAGMA's, which calls
+`cudaMalloc` and `cudaFree` itself) computed by cuBLAS's triangular solve,
+in blocks of BLOCK ticks in the order magma, cublas, cublas, magma.  Then
+the spans' own cost: ticks with the program's spans against ticks with
+`span` stubbed out, under the profiler and without it, each block the first
+COST_TICKS ticks of an episode, in the order on, off, off, on, twice.
+`--build` profiles one map build of `chip_smoke.py`'s hill cloud (mode xyz)
+the same way.  `--out` writes everything as JSON (the slow ticks all, the
+summary every key).
 """
 
 import argparse
@@ -45,6 +45,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from uneven_planner_tpu_torch.config import MPCConfig  # noqa: E402
 from uneven_planner_tpu_torch.kernels import admm as kadmm  # noqa: E402
+from uneven_planner_tpu_torch.kernels import ruiz as kruiz  # noqa: E402
 from uneven_planner_tpu_torch.minco.traj import expand_traj  # noqa: E402
 from uneven_planner_tpu_torch.mpc import tracker, traj_msg  # noqa: E402
 from uneven_planner_tpu_torch.sim import rollout  # noqa: E402
@@ -306,6 +307,7 @@ def study_ticks(qp, ticks, dev):
     fleet = Fleet(qp, SEED, dev)
     fleet.warm()
     reads0, launches0 = dict(profiling.host_reads), dict(kadmm.launches)
+    k7_0 = dict(kruiz.launches)
     total, rows = {}, []
     while len(rows) < ticks:
         n = min(CHUNK, ticks - len(rows))
@@ -349,6 +351,8 @@ def study_ticks(qp, ticks, dev):
             k: (profiling.host_reads[k] - reads0[k]) / n for k in reads0},
         "k6_launches_per_tick": {
             k: (kadmm.launches[k] - launches0[k]) / n for k in launches0},
+        "k7_launches_per_tick": {
+            k: (kruiz.launches[k] - k7_0[k]) / n for k in k7_0},
         "per_tick": per_tick,
         "slow_ticks": slow,
     }
@@ -479,7 +483,8 @@ def main():
     t = res["ticks"]
     print(json.dumps({k: t[k] for k in (
         "qp", "lanes", "ticks", "wall_ms_median", "wall_ms_p95",
-        "call_ms_median", "host_reads_per_tick", "k6_launches_per_tick")}))
+        "call_ms_median", "host_reads_per_tick", "k6_launches_per_tick",
+        "k7_launches_per_tick")}))
     for k, v in t["per_tick"].items():
         print(k, json.dumps(dict(list(v.items())[:14])))
     print(f"slow ticks (> {SLOW} x the median, {t['slow_ms']:.1f} ms): "

@@ -874,33 +874,18 @@ def test_admm_variant_is_chosen_by_shape_and_dtype(n, m, dtype):
         admm.variant(n, m, torch.float16)
 
 
+def _tick_qp(condense, lanes, dtype, device, seed=0, warm_ticks=2):
+    """The first QP of a tracking tick as `mpc_step` assembles it, unscaled,
+    and the config (`chip_smoke.tick_qp`)."""
+    from chip_smoke import tick_qp
+    return tick_qp(condense, lanes, dtype, device, seed, warm_ticks)
+
+
 def _tick_setup(condense, lanes, dtype, device, seed=0, warm_ticks=2):
-    """The scaled first QP of a tracking tick, as `mpc_step` builds it:
-    `lanes` controllers on the figure-eight, `warm_ticks` ticks after their
-    start states (at rest some entries of A are zero), the condensed
-    (n = 60, m = 118) or the full QP (n = 150, m = 208); returns
-    `setup_qp`'s result and the config."""
-    from uneven_planner_tpu_torch.config import MPCConfig
-    from uneven_planner_tpu_torch.minco.traj import expand_traj
-    from uneven_planner_tpu_torch.mpc import tracker, traj_msg
-    from uneven_planner_tpu_torch.sim import rollout
+    """`setup_qp`'s result on `_tick_qp`'s QP (made contiguous), and the
+    config."""
     from uneven_planner_tpu_torch.solver import admm_qp
-    cfg = MPCConfig(qp_condense=condense)
-    f8 = expand_traj(traj_msg.figure_eight(0.5, dtype=dtype, device=device),
-                     lanes)
-    rng = np.random.default_rng(seed)
-    s0 = np.zeros((lanes, 3))
-    s0[:, :2] = rng.uniform(-0.05, 0.05, (lanes, 2))
-    s0[:, 2] = np.pi / 4 + rng.uniform(-0.1, 0.1, lanes)
-    s = rollout.roll_init(torch.tensor(s0, dtype=dtype, device=device), cfg)
-    for _ in range(warm_ticks):
-        s, _, _ = rollout.tick(f8, s, cfg, 0.01, 3, None)
-    refs, _ = tracker.get_ref_points(f8, s.t, cfg)
-    refs = tracker.smooth_yaw(refs, s.state[:, 2])
-    xbar = tracker.predict_motion(s.state, s.output, cfg)
-    assemble = tracker.assemble_qp_condensed if condense \
-        else tracker.assemble_qp
-    qp = assemble(xbar, s.output, refs, torch.zeros_like(refs[:, :2]), cfg)
+    qp, cfg = _tick_qp(condense, lanes, dtype, device, seed, warm_ticks)
     return admm_qp.setup_qp(*[a.contiguous() for a in qp], rho=cfg.qp_rho,
                             sigma=cfg.qp_sigma), cfg
 
@@ -1395,3 +1380,316 @@ def test_map_build_on_card_goes_through_k3_and_matches_the_cpu(card):
     d = (got.data.cpu() - want.data).abs()
     assert got.data.is_cuda and float(d.max()) < 2e-3
     assert float(d.median()) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K7 ruiz_equilibrate (csrc/ruiz.cu)
+# ---------------------------------------------------------------------------
+
+RUIZ_ITERS = 10
+RUIZ_OUT = ("Pb", "qb", "Ab", "lb", "ub", "D", "E", "c")
+
+
+def _ruiz_rtol(n, dtype):
+    """K7 against its twin, relative, on every output: the one place they
+    round differently is the mean of P's n column maxima in each cost
+    scale g, summed in another order on each side; a sum of n terms >= 0 is
+    within (n - 1) u of the exact sum whatever the order (u the unit
+    roundoff), so two orders differ by at most 2 n u, and the ten g's, each
+    carried into c, P and q and through the column maxima into the next
+    iteration's scales, by at most twice that together."""
+    return 2 * RUIZ_ITERS * n * torch.finfo(dtype).eps
+
+
+def _ruiz_gap(got, want):
+    """The largest relative gap of got from want over the finite entries
+    that are not zero in want; NaN, the infinities and zeros must sit where
+    they sit in want."""
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = ~want.isnan()
+    g, w = got[ok], want[ok]
+    assert torch.equal(g[w.isinf()], w[w.isinf()])
+    assert torch.equal(g == 0, w == 0)
+    nz = (w != 0) & w.isfinite()
+    if not bool(nz.any()):
+        return 0.0
+    return float(((g[nz] - w[nz]).abs() / w[nz].abs()).max())
+
+
+def _ruiz_case(B, n, m, seed, device, dtype, broadcast=False):
+    """Random QP data over a wide range of magnitudes (rows and columns
+    between 1e-6 and 1e6, so that both clips act), with exact zeros; with
+    `broadcast`, P, A, l and u one lane expanded over B, as the tracker's
+    constant parts come."""
+    rng = np.random.default_rng(seed)
+    k = 1 if broadcast else B
+    scale = lambda *s: 10.0 ** rng.uniform(-6, 6, s)
+    P = rng.normal(size=(k, n, n)) * scale(k, n, 1) * scale(k, 1, n)
+    P[rng.random(P.shape) < 0.3] = 0.0
+    A = rng.normal(size=(k, m, n)) * scale(k, m, 1) * scale(k, 1, n)
+    A[rng.random(A.shape) < 0.3] = 0.0
+    l = -np.abs(rng.normal(size=(k, m))) * scale(k, m)
+    u = np.abs(rng.normal(size=(k, m))) * scale(k, m)
+    l[:, ::5] = -np.inf
+    q = rng.normal(size=(B, n)) * scale(B, n)
+    to = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    P, A, l, u, q = map(to, (P, A, l, u, q))
+    if broadcast:
+        P, A, l, u = (t.expand((B,) + t.shape[1:]) for t in (P, A, l, u))
+    return P, q, A, l, u
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("n,m,dtype,want", [
+    (60, 118, F32, "shared"), (60, 118, F64, "shared"),
+    (150, 208, F32, "shared"), (150, 208, F64, "global"),
+    (150, 224, F32, "shared"), (150, 225, F32, "global"),
+    (2, 9681, F32, "shared"), (2, 9682, F32, "global"),
+    (2, 4839, F64, "shared"), (2, 4840, F64, "global"),
+    (2, 14523, F32, "global"), (2, 14524, F32, None),
+    (2, 7259, F64, "global"), (2, 7260, F64, None)])
+def test_ruiz_instantiation_is_chosen_by_shape_and_dtype(n, m, dtype, want):
+    """Where K7 keeps a lane, decided by shape and dtype before the launch:
+    the condensed tracking QP in shared memory in both dtypes, the full one
+    in float32 there and in float64 in place in device memory, and each
+    shape just inside and just past a limit; the bytes counted by hand from
+    the layout (`csrc/ruiz.cu`: P and A from 16-byte boundaries, then
+    7 n + 4 m + 4 elements of vectors).  None: not even the vectors fit."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    elt = 4 if dtype == F32 else 8
+    r16 = lambda b: -(-b // 16) * 16
+    mat, vec = r16(elt * n * n) + r16(elt * m * n), elt * (7 * n + 4 * m + 4)
+    nbytes, resident = ruiz.shared_bytes(n, m, dtype)
+    assert resident == (want == "shared")
+    assert nbytes == {"shared": mat + vec, "global": vec, None: 0}[want]
+    assert nbytes <= ruiz.MAX_SHARED_BYTES
+    if want is None:
+        with pytest.raises(ValueError):
+            ruiz.instantiation(n, m, dtype)
+    else:
+        assert ruiz.instantiation(n, m, dtype) == want
+    with pytest.raises(TypeError):
+        ruiz.instantiation(n, m, torch.float16)
+    # the full QP in float32 is the largest tracking lane: one block an SM
+    assert ruiz.shared_bytes(150, 208, F32) == (222344, True)
+    assert ruiz.shared_bytes(60, 118, F32) == (46304, True)
+    assert ruiz.shared_bytes(60, 118, F64) == (92608, True)
+    assert ruiz.shared_bytes(150, 208, F64) == (15088, False)
+
+
+@pytest.mark.parametrize("condense", [True, False])
+def test_ruiz_takes_the_twin_on_the_cpu(condense):
+    """On CPU tensors `ruiz_equilibrate` is its twin, output for output bit
+    for bit, and `setup_qp` equilibrates through it under `up.qp.ruiz`;
+    neither touches K7's launch counter."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    qp, cfg = _tick_qp(condense, 3, torch.float64, "cpu")
+    before = dict(ruiz.launches)
+    got = admm_qp.ruiz_equilibrate(*qp)
+    want = admm_qp.ruiz_equilibrate_twin(*qp)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    setup = admm_qp.setup_qp(*qp, rho=cfg.qp_rho, sigma=cfg.qp_sigma)
+    assert torch.equal(setup.data.P, want[0])
+    assert torch.equal(setup.D, want[5]) and torch.equal(setup.E, want[6])
+    assert ruiz.launches == before
+    if not torch.cuda.is_available():
+        assert all(v == 0 for v in ruiz.launches.values())
+
+
+def test_ruiz_launcher_refuses_other_devices_before_it_loads_the_kernel():
+    """The launcher raises on tensors that are not on a CUDA device before
+    it builds or loads anything, and counts nothing."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    qp = _ruiz_case(2, 5, 7, seed=0, device="cpu", dtype=torch.float32)
+    before = dict(ruiz.launches)
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            ruiz.ruiz_equilibrate(*[t.to(dev) for t in qp])
+    assert ruiz.launches == before
+    assert ruiz.LIBRARY._lib is None or torch.cuda.is_available()
+
+
+@pytest.fixture(scope="module")
+def ruiz_ticks():
+    """The first QPs of real ticks at 512 lanes on the card, both forms,
+    float32 and float64, as the tracker hands them to `setup_qp`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return {(condense, dtype): _tick_qp(condense, 512, dtype, "cuda")[0]
+            for condense in (True, False)
+            for dtype in (torch.float32, torch.float64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("condense", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ruiz_kernel_matches_twin_on_real_ticks_on_card(ruiz_ticks, condense,
+                                                        dtype):
+    """K7 against its twin on the same CUDA tensors, the QPs of a real tick
+    at 512 lanes: after one iteration D, E, Ab, lb and ub bit for bit (they
+    come before any g), Pb, qb and c within `_ruiz_rtol`; after ten every
+    output within it.  One launch a call, of the instantiation the shape
+    and dtype name."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    qp = ruiz_ticks[(condense, dtype)]
+    n, m = qp[1].shape[1], qp[3].shape[1]
+    which = "ruiz_equilibrate_" + ruiz.instantiation(n, m, dtype)
+    tol = _ruiz_rtol(n, dtype)
+    for iters in (1, RUIZ_ITERS):
+        before = dict(ruiz.launches)
+        got = ruiz.ruiz_equilibrate(*qp, iters=iters)
+        torch.cuda.synchronize()
+        for key in ruiz.launches:
+            grew = 1 if key in ("ruiz_equilibrate", which) else 0
+            assert ruiz.launches[key] == before[key] + grew, key
+        want = admm_qp.ruiz_equilibrate_twin(*qp, iters=iters)
+        for name, a, b in zip(RUIZ_OUT, got, want):
+            assert a.shape == b.shape and a.is_contiguous(), name
+            if iters == 1 and name in ("D", "E", "Ab", "lb", "ub"):
+                assert torch.equal(a, b), name
+            else:
+                assert _ruiz_gap(a, b) <= tol, (name, _ruiz_gap(a, b), tol)
+    if dtype == torch.float32:
+        assert which == "ruiz_equilibrate_shared"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,dtype", [
+    (2, 12, torch.float32), (2, 12, torch.float64), (1, 9, torch.float32),
+    (2, 12000, torch.float32), (2, 6000, torch.float64)])
+@pytest.mark.parametrize("iters", [0, 3, RUIZ_ITERS])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_ruiz_kernel_equals_twin_bit_for_bit_where_means_are_exact_on_card(
+        n, m, dtype, iters, broadcast):
+    """With n <= 2 a mean of n column maxima is the same sum in any order,
+    so K7 equals its twin bit for bit on every output, through every
+    iteration and both clips, in shared memory and in place in device
+    memory ((2, 12000) float32 and (2, 6000) float64 do not fit), with
+    inputs broadcast over the lanes or not."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    qp = _ruiz_case(9, n, m, seed=n + m + iters, device="cuda", dtype=dtype,
+                    broadcast=broadcast)
+    want_place = "global" if m >= 6000 else "shared"
+    assert ruiz.instantiation(n, m, dtype) == want_place
+    got = ruiz.ruiz_equilibrate(*qp, iters=iters)
+    want = admm_qp.ruiz_equilibrate_twin(*qp, iters=iters)
+    torch.cuda.synchronize()
+    for name, a, b in zip(RUIZ_OUT, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(300, 40), (150, 225)])
+def test_ruiz_kernel_matches_twin_in_place_on_card(n, m):
+    """Shapes off the tracking path in float32 that do not fit in shared
+    memory, so run in place in device memory: n = 300 (two chunks of 256
+    columns a lane) and (150, 225), one row too many; one iteration bit for
+    bit before g, ten within `_ruiz_rtol`."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dtype = torch.float32
+    qp = _ruiz_case(7, n, m, seed=n, device="cuda", dtype=dtype)
+    assert ruiz.instantiation(n, m, dtype) == "global"
+    for iters in (1, RUIZ_ITERS):
+        got = ruiz.ruiz_equilibrate(*qp, iters=iters)
+        want = admm_qp.ruiz_equilibrate_twin(*qp, iters=iters)
+        torch.cuda.synchronize()
+        for name, a, b in zip(RUIZ_OUT, got, want):
+            if iters == 1 and name in ("D", "E", "Ab", "lb", "ub"):
+                assert torch.equal(a, b), name
+            else:
+                assert _ruiz_gap(a, b) <= _ruiz_rtol(n, dtype), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["P", "A", "q"])
+@pytest.mark.parametrize("condense", [True, False])
+def test_ruiz_kernel_keeps_a_nan_lane_to_itself_on_card(ruiz_ticks, where,
+                                                        condense):
+    """A NaN planted in one lane's P, A or q: every output of that lane is
+    NaN, as the twin's, and every other lane equals a run without it bit
+    for bit."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    qp = [t.contiguous().clone() for t in ruiz_ticks[(condense,
+                                                      torch.float32)]]
+    clean = ruiz.ruiz_equilibrate(*qp)
+    bad = 37
+    t = {"P": qp[0], "A": qp[2], "q": qp[1]}[where]
+    t[(bad,) + (3,) * (t.dim() - 1)] = float("nan")
+    got = ruiz.ruiz_equilibrate(*qp)
+    want = admm_qp.ruiz_equilibrate_twin(*qp)
+    torch.cuda.synchronize()
+    keep = torch.arange(qp[1].shape[0], device="cuda") != bad
+    for name, a, b, c in zip(RUIZ_OUT, got, want, clean):
+        assert a[bad].isnan().all() and b[bad].isnan().all(), name
+        assert torch.equal(a[keep], c[keep]), name
+
+
+@pytest.mark.cuda
+def test_ruiz_kernel_takes_a_batch_of_no_lanes_on_card(ruiz_ticks):
+    """No lanes: the twin's empty outputs, and no launch."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    for condense in (True, False):
+        qp = [t[:0] for t in ruiz_ticks[(condense, torch.float32)]]
+        before = dict(ruiz.launches)
+        got = admm_qp.ruiz_equilibrate(*qp)
+        want = admm_qp.ruiz_equilibrate_twin(*qp)
+        assert ruiz.launches == before
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype and a.is_cuda
+
+
+@pytest.mark.cuda
+def test_ruiz_kernel_rejects_what_it_does_not_take_on_card(ruiz_ticks):
+    """Mixed dtypes, a lane that is not row-major and a tensor on another
+    device raise before a launch; the library refuses a lane that does not
+    fit where it is told to put it."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    qp = list(ruiz_ticks[(True, torch.float32)])
+    before = dict(ruiz.launches)
+    with pytest.raises(TypeError):
+        ruiz.ruiz_equilibrate(*qp[:3], qp[3].double(), qp[4])
+    with pytest.raises(ValueError):
+        ruiz.ruiz_equilibrate(qp[0].contiguous().mT, *qp[1:])
+    with pytest.raises(ValueError):
+        ruiz.ruiz_equilibrate(qp[0], qp[1], qp[2], qp[3].cpu(), qp[4])
+    assert ruiz.launches == before
+    lib = ruiz.LIBRARY.load()
+    invalid = 1   # cudaErrorInvalidValue
+    for n, m, dbl, resident in ((150, 208, 1, 1), (150, 225, 0, 1),
+                                (2, 14524, 0, 0), (2, 7260, 1, 0)):
+        assert lib.ruiz_equilibrate(*[None] * 5, *[0] * 5, *[None] * 8, 1, n,
+                                    m, RUIZ_ITERS, dbl, resident, 1e-4, 1e4,
+                                    None) == invalid, (n, m, dbl, resident)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("condense", [True, False])
+def test_solve_qp_on_card_equilibrates_with_one_k7_launch(ruiz_ticks,
+                                                          condense):
+    """`setup_qp` on the card launches K7 once, in shared memory for the
+    float32 tracking QPs, and hands K6 the kernel's data."""
+    from uneven_planner_tpu_torch.kernels import ruiz
+    from uneven_planner_tpu_torch.solver import admm_qp
+    qp = ruiz_ticks[(condense, torch.float32)]
+    before = dict(ruiz.launches)
+    setup = admm_qp.setup_qp(*qp)
+    torch.cuda.synchronize()
+    assert ruiz.launches["ruiz_equilibrate"] == before["ruiz_equilibrate"] + 1
+    assert ruiz.launches["ruiz_equilibrate_shared"] \
+        == before["ruiz_equilibrate_shared"] + 1
+    want = ruiz.ruiz_equilibrate(*qp)
+    assert torch.equal(setup.data.P, want[0])
+    assert torch.equal(setup.data.A, want[2])

@@ -87,9 +87,10 @@ def _check_tick_tree(spans, passes, full_on_card):
         assert _names(inside) == PASS
         for name, below in inside:
             # the nonzero counts are read only where the kernel is sized
-            # by them: the full QP on the card
-            want = ["up.qp.nnz"] if name == "up.qp.admm" and full_on_card \
-                else []
+            # by them: the full QP on the card; the equilibration is in the
+            # setup's span on either device
+            want = {"up.qp.admm": ["up.qp.nnz"] if full_on_card else [],
+                    "up.qp.setup": ["up.qp.ruiz"]}.get(name, [])
             assert _names(below) == want and all(c == [] for _, c in below)
 
 
@@ -103,8 +104,9 @@ def _early_exit_checks(passes: int, cap: int) -> int:
 def test_tick_spans_nest_one_pass_span_a_pass(condense):
     """A tick of 3 lanes under the CPU profiler: `up.tick` holds the
     reference sampling, the MPC step and the plant; the step one
-    `up.mpc_step.pass` a pass it ran, each the assembly and the QP's setup,
-    iterations and finish, in that order."""
+    `up.mpc_step.pass` a pass it ran, each the assembly and the QP's setup
+    (with the equilibration's `up.qp.ruiz` in it), iterations and finish,
+    in that order."""
     cfg = MPCConfig(qp_condense=condense)
     traj, s = _fleet(cfg, 3, "cpu", torch.float64)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -293,9 +295,10 @@ def test_tick_reads_and_device_time_by_span_on_card(card, condense):
     PyTorch's sync debug mode reports from the counted sites is one count
     of `host_reads` (early-exit checks, and on the full QP one nonzero
     count a pass); under the profiler the spans nest as on the CPU, K6's
-    device time is `up.qp.admm`'s own, every operation is launched inside
-    `up.tick`, no span has a mirror on the device's timeline, and the
-    mirror of a `record_function` around the tick counts under no span."""
+    device time is `up.qp.admm`'s own and K7's `up.qp.ruiz`'s, every
+    operation is launched inside `up.tick`, no span has a mirror on the
+    device's timeline, and the mirror of a `record_function` around the
+    tick counts under no span."""
     cfg = MPCConfig(qp_condense=condense)
     traj, s = _fleet(cfg, 512, card, torch.float32)
     s, _, _ = rollout.tick(traj, s, cfg, 0.01, 3, None)   # builds K6
@@ -340,6 +343,9 @@ def test_tick_reads_and_device_time_by_span_on_card(card, condense):
     by_span = tick_spans.device_time_by_span(events)
     print({k: round(v * 1e3, 4) for k, v in sorted(by_span.items())})
     assert k6 > 0 and abs(by_span["up.qp.admm"] - k6) <= 0.01 * k6
+    k7 = sum(e.end_ns() - e.start_ns() for e in ops
+             if "ruiz_kernel" in e.name()) * 1e-9
+    assert k7 > 0 and abs(by_span["up.qp.ruiz"] - k7) <= 0.01 * k7
     assert by_span.get("", 0.0) == 0.0
     device = sum(e.end_ns() - e.start_ns() for e in ops) * 1e-9
     assert abs(sum(by_span.values()) - device) <= 1e-6 * device

@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from uneven_planner_tpu_torch.kernels import admm as kadmm
+from uneven_planner_tpu_torch.kernels import ruiz as kruiz
 from uneven_planner_tpu_torch.utils.profiling import read_host, span
 
 
@@ -60,7 +61,20 @@ def ruiz_equilibrate(P, q, A, l, u, iters: int = 10,
     and columns of the KKT data by inverse sqrt inf-norms, plus a cost
     normalization c.  Returns (Pb, qb, Ab, lb, ub, D, E, c) with
       Pb = c D P D, qb = c D q, Ab = E A D, lb/ub = E l/u
-    and the unscaling x = D xb, y = c^{-1} E yb."""
+    and the unscaling x = D xb, y = c^{-1} E yb.  On CPU tensors the plain
+    twin below; on CUDA tensors the kernel K7, one launch
+    (`kernels/ruiz.py`), or an exception."""
+    if q.device.type == "cpu":
+        return ruiz_equilibrate_twin(P, q, A, l, u, iters, min_scale,
+                                     max_scale)
+    return kruiz.ruiz_equilibrate(P, q, A, l, u, iters=iters,
+                                  min_scale=min_scale, max_scale=max_scale)
+
+
+def ruiz_equilibrate_twin(P, q, A, l, u, iters: int = 10,
+                          min_scale: float = 1e-4, max_scale: float = 1e4):
+    """Plain PyTorch version of K7 `ruiz_equilibrate`, any float dtype and
+    device: ~34 operations over the batch an iteration."""
     B, n = q.shape
     m = l.shape[1]
     D = q.new_ones((B, n))
@@ -182,7 +196,8 @@ def setup_qp(P, q, A, l, u, *, rho: float = 0.1, sigma: float = 1e-6,
     # through the equilibration magnitudes.
     is_eq = (u - l).abs() < 1e-12
     if ruiz:
-        P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u)
+        with span("up.qp.ruiz"):
+            P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u)
     else:
         D = q.new_ones((B, n))
         E = q.new_ones((B, m))
@@ -234,9 +249,10 @@ def solve_qp(P, q, A, l, u, *, rho: float = 0.1, sigma: float = 1e-6,
     ones for float32 QPs that fit (the condensed tracking QP), the sparse
     one for the QPs whose nonzeros fit in shared memory (the full tracking
     QP, n = 150, m = 208, and the float64 condensed one) and the
-    global-memory one for the rest.  Spans: `up.qp.setup` (with adaptive rho
-    also each rho update), `up.qp.admm` around each launch, `up.qp.finish`
-    (unscaling, polish)."""
+    global-memory one for the rest.  The equilibration runs in the kernel
+    K7, one launch a call (`kernels/ruiz.py`).  Spans: `up.qp.setup` (with
+    adaptive rho also each rho update) with `up.qp.ruiz` under it,
+    `up.qp.admm` around each launch, `up.qp.finish` (unscaling, polish)."""
     B = q.shape[0]
     with span("up.qp.setup"):
         data, state, D, E, is_eq = setup_qp(P, q, A, l, u, rho=rho,
